@@ -1,0 +1,232 @@
+"""Address-Event Queue (AEQ): runtime compaction of sparse binary fmaps
+(paper Secs. V-A / VI-A; main-path port of ``repro.core.aeq``).
+
+A binary fmap becomes a fixed-capacity queue of the (i, j) coordinates of
+its ones, in the paper's interlaced column order (column
+s = kw*(i%kh) + (j%kw), then i, then j), which makes same-column events
+hazard-free.  The static capacity plays the role of the BRAM queue depth:
+events beyond it are dropped from the tail of that order, exactly as a
+full hardware queue would, and every builder here truncates identically
+to the JAX package (the serve plan truncates on the main path).
+
+Every queue also carries its column segments (``seg_offsets`` /
+``seg_counts``); ``segment_pad`` re-lays a queue so each segment starts
+at and is padded to a multiple of ``event_par`` — the layout the
+interlaced conv kernel consumes.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from .geometry import GEOM_3X3, ConvGeometry
+
+
+class EventQueue(NamedTuple):
+    """One fixed-capacity queue of address events.
+
+    coords: (capacity, 2) int32 (i, j); -1 where ~valid.
+    valid:  (capacity,) bool.
+    count:  () int32 spike demand (may exceed the kept events).
+    seg_offsets/seg_counts: (n_banks,) int32 interlace column segments,
+        None for raster-ordered queues.
+    """
+
+    coords: torch.Tensor
+    valid: torch.Tensor
+    count: torch.Tensor
+    seg_offsets: Optional[torch.Tensor] = None
+    seg_counts: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.coords.shape[0]
+
+
+class BatchedEventQueue(NamedTuple):
+    """A stack of queues sharing one capacity: coords (..., cap, 2),
+    valid (..., cap), count (...,), segments (..., n_banks)."""
+
+    coords: torch.Tensor
+    valid: torch.Tensor
+    count: torch.Tensor
+    seg_offsets: Optional[torch.Tensor] = None
+    seg_counts: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.coords.shape[-2]
+
+    def queue_at(self, index: tuple) -> EventQueue:
+        return EventQueue(
+            coords=self.coords[index], valid=self.valid[index],
+            count=self.count[index],
+            seg_offsets=None if self.seg_offsets is None
+            else self.seg_offsets[index],
+            seg_counts=None if self.seg_counts is None
+            else self.seg_counts[index])
+
+
+def column_index(i, j, geometry: ConvGeometry = GEOM_3X3):
+    """Interlace column s = kw*(i % kh) + (j % kw)."""
+    return geometry.column_of(i, j)
+
+
+def interlaced_capacity(capacity: int, event_par: int,
+                        n_banks: int = 9) -> int:
+    """Queue depth of the ``segment_pad`` layout: worst case adds
+    n_banks*(event_par-1) slots, rounded up to an event_par multiple."""
+    if event_par <= 1:
+        return capacity
+    base = capacity + n_banks * (event_par - 1)
+    return -(-base // event_par) * event_par
+
+
+def _order_keys(h: int, w: int, interlaced: bool,
+                geometry: ConvGeometry = GEOM_3X3,
+                device=None) -> torch.Tensor:
+    """(H*W,) int32 read-order key per pixel: (column s, i, j) or raster."""
+    ii, jj = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing="ij")
+    ii, jj = ii.reshape(-1), jj.reshape(-1)
+    if interlaced:
+        key = column_index(ii, jj, geometry) * (h * w) + ii * w + jj
+    else:
+        key = ii * w + jj
+    return key.to(torch.int32)
+
+
+def _kept_segments(flat: torch.Tensor, h: int, w: int, kept: torch.Tensor,
+                   geometry: ConvGeometry = GEOM_3X3
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(seg_offsets, seg_counts), both (N, n_banks) int32, of the first
+    ``kept`` events in interlaced order: truncation drops from the tail,
+    so column s keeps clip(kept - cum_s, 0, count_s).
+
+    The per-column totals come from a reshape-sum over (kh, kw) macro
+    cells instead of JAX's one-hot sum; both count the same pixels.
+    """
+    kh, kw = geometry.kh, geometry.kw
+    n = flat.shape[0]
+    x = flat.reshape(n, h, w).to(torch.int32)
+    x = torch.nn.functional.pad(x, (0, -w % kw, 0, -h % kh))
+    hb, wb = x.shape[1] // kh, x.shape[2] // kw
+    full = x.reshape(n, hb, kh, wb, kw).sum(dim=(1, 3)).reshape(n, kh * kw)
+    full = full.to(torch.int32)
+    cum = torch.cumsum(full, dim=-1) - full  # exclusive
+    seg_counts = torch.minimum(torch.clamp(kept[:, None] - cum, min=0), full)
+    seg_offsets = torch.cumsum(seg_counts, dim=-1) - seg_counts
+    return seg_offsets.to(torch.int32), seg_counts.to(torch.int32)
+
+
+def build_aeq_batched(fmaps: torch.Tensor, capacity: int, *,
+                      interlaced: bool = True,
+                      geometry: ConvGeometry = GEOM_3X3
+                      ) -> BatchedEventQueue:
+    """Compact a stack of binary fmaps (..., H, W) in one batched sort.
+
+    Keys of active pixels are unique, so the sort order is fully
+    determined; the ties among inactive pixels (the ``big`` key) are
+    masked to -1 and ``valid=False``.  Bit-exact vs the JAX builder
+    (tests/test_torch_encoding_aeq.py).
+    """
+    *lead, h, w = fmaps.shape
+    nb = geometry.n_banks
+    n = math.prod(lead)
+    flat = fmaps.reshape(n, h * w).to(torch.bool)
+    big = nb * h * w + 1
+    order = _order_keys(h, w, interlaced, geometry, device=fmaps.device)
+    keys = torch.where(flat, order[None, :],
+                       torch.full((), big, dtype=torch.int32,
+                                  device=fmaps.device))
+    sorted_keys, perm = torch.sort(keys, dim=-1)
+    take_n = min(capacity, h * w)
+    take = perm[:, :take_n].to(torch.int32)
+    valid = sorted_keys[:, :take_n] < big
+    coords = torch.stack([take // w, take % w], dim=-1)
+    coords = torch.where(valid[..., None], coords, -1).to(torch.int32)
+    if take_n < capacity:
+        pad = capacity - take_n
+        coords = torch.cat([coords, coords.new_full((n, pad, 2), -1)], dim=1)
+        valid = torch.cat([valid, valid.new_zeros((n, pad))], dim=1)
+    count = flat.sum(dim=-1).to(torch.int32)
+    seg_off = seg_cnt = None
+    if interlaced:
+        kept = torch.clamp(count, max=take_n)
+        seg_off, seg_cnt = _kept_segments(flat, h, w, kept, geometry)
+        seg_off = seg_off.reshape(*lead, nb)
+        seg_cnt = seg_cnt.reshape(*lead, nb)
+    return BatchedEventQueue(
+        coords=coords.reshape(*lead, capacity, 2),
+        valid=valid.reshape(*lead, capacity),
+        count=count.reshape(tuple(lead)),
+        seg_offsets=seg_off, seg_counts=seg_cnt)
+
+
+def build_aeq(fmap: torch.Tensor, capacity: int, *, interlaced: bool = True,
+              geometry: ConvGeometry = GEOM_3X3) -> EventQueue:
+    """Compact one binary fmap (H, W): the one-fmap view of
+    :func:`build_aeq_batched`."""
+    bq = build_aeq_batched(fmap[None], capacity, interlaced=interlaced,
+                           geometry=geometry)
+    return bq.queue_at((0,))
+
+
+def segment_pad(queue: BatchedEventQueue | EventQueue, event_par: int,
+                geometry: ConvGeometry = GEOM_3X3
+                ) -> BatchedEventQueue | EventQueue:
+    """Re-lay an interlaced queue so column segments are event_par-aligned.
+
+    Each segment keeps its events in order, starts at a multiple of
+    ``event_par`` and is padded with invalid slots, so every aligned
+    group of ``event_par`` slots holds one column (or padding).  Capacity
+    becomes ``interlaced_capacity(cap, event_par)``; ``seg_offsets``
+    point into the padded layout.
+    """
+    if queue.seg_offsets is None:
+        raise ValueError("segment_pad needs an interlaced queue carrying "
+                         "column segments (build_aeq(..., interlaced=True))")
+    single = isinstance(queue, EventQueue)
+    if single:
+        queue = BatchedEventQueue(*(x[None] for x in queue))
+    coords, valid = queue.coords, queue.valid
+    nb = geometry.n_banks
+    lead = coords.shape[:-2]
+    n = math.prod(lead)
+    cap = coords.shape[-2]
+    cap_pad = interlaced_capacity(cap, event_par, nb)
+    coords = coords.reshape(n, cap, 2)
+    valid = valid.reshape(n, cap)
+    seg_cnt = queue.seg_counts.reshape(n, nb).to(torch.int64)
+    seg_off = queue.seg_offsets.reshape(n, nb).to(torch.int64)
+
+    pad_cnt = -(-seg_cnt // event_par) * event_par
+    pad_off = torch.cumsum(pad_cnt, dim=-1) - pad_cnt
+    col = column_index(coords[..., 0].to(torch.int64),
+                       coords[..., 1].to(torch.int64), geometry)
+    col = torch.where(valid, col, 0)
+    rank = (torch.arange(cap, device=coords.device)[None, :]
+            - torch.gather(seg_off, -1, col))
+    newpos = torch.gather(pad_off, -1, col) + rank
+    newpos = torch.where(valid, newpos, cap_pad)  # one dump slot, cut below
+    oc = coords.new_full((n, cap_pad + 1, 2), -1)
+    oc.scatter_(1, newpos[..., None].expand(n, cap, 2), coords)
+    ov = valid.new_zeros((n, cap_pad + 1))
+    ov.scatter_(1, newpos, valid)
+    out = BatchedEventQueue(
+        coords=oc[:, :cap_pad].reshape(*lead, cap_pad, 2).contiguous(),
+        valid=ov[:, :cap_pad].reshape(*lead, cap_pad).contiguous(),
+        count=queue.count,
+        seg_offsets=pad_off.to(torch.int32).reshape(*lead, nb),
+        seg_counts=queue.seg_counts)
+    return out.queue_at((0,)) if single else out
+
+
+def scatter_aeq(queue: EventQueue, shape: tuple[int, int]) -> torch.Tensor:
+    """Inverse of build_aeq: expand an EventQueue back into a binary fmap."""
+    fmap = torch.zeros(shape, dtype=torch.bool, device=queue.coords.device)
+    kept = queue.coords[queue.valid].long()
+    fmap[kept[:, 0], kept[:, 1]] = True
+    return fmap

@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the two batched event-conv kernels.
+
+Semantics: for every valid event (i, j) of a queue, add the
+180-degree-rotated (kh, kw, C) kernel into that queue's halo-padded tile
+at [i:i+kh, j:j+kw, :] (the halo puts the event at the window centre);
+int8/int16 tiles saturate after every event.  These are what the
+wrappers in ``kernel.py`` run for CPU tensors, and what ``chip_smoke.py``
+holds the CUDA kernels against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.aeq import column_index
+from repro_torch.core.event_conv import replay_events_, rotate_kernel
+from repro_torch.core.geometry import ConvGeometry
+
+
+def event_conv_ref(vm_padded: torch.Tensor, coords: torch.Tensor,
+                   valid: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """One queue: vm (Hp, Wp, C), coords (E, 2), valid (E,)."""
+    return event_conv_ref_batched(vm_padded[None], coords[None], valid[None],
+                                  kernel)[0]
+
+
+def event_conv_ref_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
+                           valid: torch.Tensor, kernel: torch.Tensor
+                           ) -> torch.Tensor:
+    """Q independent queue replays, in queue order (the oracle of
+    ``event_conv_cuda_batched``): vm (Q, Hp, Wp, C), coords (Q, E, 2),
+    valid (Q, E), kernel (kh, kw, C) shared.  Slots that are invalid in
+    every queue are skipped: they would add zeros."""
+    vm = vm_padded.clone(memory_format=torch.contiguous_format)
+    k_rot = rotate_kernel(kernel).to(vm.dtype)
+    steps = valid.to(torch.bool).any(dim=0).nonzero().flatten()
+    return replay_events_(vm, coords, valid, k_rot, steps)
+
+
+def interlaced_keep(coords: torch.Tensor, valid: torch.Tensor,
+                    event_par: int, geometry: ConvGeometry) -> torch.Tensor:
+    """Slots the interlaced kernel applies, as a (Q, E) bool mask.
+
+    Per aligned group of ``event_par`` slots: the first valid slot is the
+    anchor; when every valid slot shares the anchor's interlace column the
+    group is applied as one gather -> add -> scatter, whose windows are
+    disjoint except for repeated coordinates, which land once (every copy
+    writes the same updated patch).  A mixed group runs in queue order.
+    So a slot is applied iff it is valid and not a repeat of an earlier
+    valid slot of a column-homogeneous group.
+    """
+    q, e = valid.shape
+    g = e // event_par
+    v = valid.to(torch.bool).reshape(q, g, event_par)
+    c = coords.reshape(q, g, event_par, 2).long()
+    col = column_index(c[..., 0], c[..., 1], geometry)
+    first = torch.argmax(v.to(torch.uint8), dim=-1, keepdim=True)
+    acol = torch.gather(col, -1, first)
+    homog = (~v | (col == acol)).all(dim=-1, keepdim=True)
+    same = (c[..., :, None, :] == c[..., None, :, :]).all(dim=-1)  # [p, r]
+    earlier = torch.ones(event_par, event_par, dtype=torch.bool,
+                         device=v.device).tril(-1)                # r < p
+    repeat = (same & earlier & v[..., None, :]).any(dim=-1)
+    return (v & ~(homog & repeat)).reshape(q, e)
+
+
+def event_conv_ref_interlaced_batched(vm_padded: torch.Tensor,
+                                      coords: torch.Tensor,
+                                      valid: torch.Tensor,
+                                      kernel: torch.Tensor, *,
+                                      event_par: int) -> torch.Tensor:
+    """Oracle of ``event_conv_cuda_interlaced_batched``: the sequential
+    replay of the slots :func:`interlaced_keep` applies.  On queues
+    without repeated coordinates (every AEQ) that is the plain sequential
+    replay."""
+    geom = ConvGeometry.from_kernel_shape(kernel.shape)
+    keep = interlaced_keep(coords, valid, event_par, geom)
+    return event_conv_ref_batched(vm_padded, coords, keep, kernel)
