@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the result line):
    against the port's plain path on the CPU (spikes, counts and carried
    state exact; logits within tolerance; argmax equal); then
    ``csnn_wide.FULL`` once, held the same way;
-5. print the launch counters of the main-path runs (each must be > 0);
+5. print the launch counters of each main-path run, each read from
+   counters set to 0 just before that run: the serve plan launches the
+   interlaced conv and the threshold kernel, ``event_par=1`` the
+   sequential conv and the threshold kernel (each must be > 0);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` and print its lines;
 7. time each kernel on the device (a CUDA graph of its launches,
@@ -47,7 +50,7 @@ SRC = ROOT / "src"
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 B = 8
-LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)  # FC sums in another order (cuBLAS)
+LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)  # FC float64 sums in another order
 
 
 def fail(msg: str) -> None:
@@ -94,14 +97,10 @@ def device_profile(fn, label: str, wall_s: float) -> None:
     (``torch.profiler``) and the device's busy share of ``wall_s``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    try:  # a diagnostic only: some machines refuse CUPTI tracing
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        print(f"profile {label}: profiler unavailable ({e})")
-        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -112,8 +111,7 @@ def device_profile(fn, label: str, wall_s: float) -> None:
         rows.append((us, e.count, e.key))
     busy_us = sum(r[0] for r in rows)
     if not busy_us:
-        print(f"profile {label}: the profiler saw no device time")
-        return
+        fail(f"profile {label}: the profiler saw no device time")
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms of "
           f"{wall_s * 1e3:.3f} ms wall per forward "
           f"({100 * busy_us / 1e6 / wall_s:.1f}% busy)")
@@ -278,9 +276,18 @@ def hold(name, got, want) -> None:
           f"classes {lg.argmax(-1).tolist()}")
 
 
+# The kernels each main-path run must launch; the JSON line reports each
+# kernel's count from the first run listed here that launches it.
+PATH_KERNELS = {
+    "serve plan (interlaced)": ("event_conv_interlaced", "threshold_pool"),
+    "event_par=1 (sequential)": ("event_conv_seq", "threshold_pool"),
+}
+
+
 def main_path(dev, cfg, wcfg):
     """Phases 4-5: the main path on the card, held against the CPU plain
-    path.  Returns (launch counts, params, images, serve plan, seq plan)."""
+    path.  Returns (launch counts per kernel, params, images, serve plan,
+    seq plan)."""
     import torch
 
     from repro_torch.core.csnn import encode_input, init_params
@@ -300,24 +307,21 @@ def main_path(dev, cfg, wcfg):
     seq_plan = plan_network(cfg, capacity=256, channel_block=8,
                             batch_tile=8, event_par=1)
     print(f"serve plan:\n{serve_plan}")
-    runtime.reset_launches()
-    got_i = forward(params, spikes, cfg, serve_plan)
-    torch.cuda.synchronize()
-    first = dict(runtime.LAUNCHES)
-    got_s = forward(params, spikes, cfg, seq_plan)
-    torch.cuda.synchronize()
-    launches = dict(runtime.LAUNCHES)
-    print(f"launches: main path (serve-plan + event_par=1 forward) {launches}")
-    print(f"launches per forward (serve plan, interlaced): {first}")
-    print(f"launches per forward (event_par=1, sequential): "
-          f"{ {k: launches[k] - first[k] for k in launches} }")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was never launched on the main path")
-    hold("csnn_paper.FULL serve plan (interlaced)", got_i,
-         forward(to_cpu(params), spikes.cpu(), cfg, serve_plan))
-    hold("csnn_paper.FULL event_par=1 (sequential)", got_s,
-         forward(to_cpu(params), spikes.cpu(), cfg, seq_plan))
+    got, launches = {}, {}
+    for (path, kernels), plan in zip(PATH_KERNELS.items(),
+                                     (serve_plan, seq_plan)):
+        runtime.reset_launches()
+        got[path] = forward(params, spikes, cfg, plan)
+        torch.cuda.synchronize()
+        counts = dict(runtime.LAUNCHES)
+        print(f"launches per forward, {path}: {counts}")
+        for k in kernels:
+            if counts[k] <= 0:
+                fail(f"kernel {k} was never launched on the {path} path")
+            launches.setdefault(k, counts[k])
+    for path, plan in zip(PATH_KERNELS, (serve_plan, seq_plan)):
+        hold(f"csnn_paper.FULL {path}", got[path],
+             forward(to_cpu(params), spikes.cpu(), cfg, plan))
     wparams = init_params(wcfg, seed=0, device=dev)
     wplan = plan_network(wcfg, capacity=256, channel_block=8, event_par=None)
     wspikes = encode_input(imgs.to(dev), wcfg)
@@ -500,6 +504,8 @@ def main() -> int:
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
+    # full-float32 yardsticks (F.conv2d); the port's own FC head sums in
+    # float64 and reads neither switch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)

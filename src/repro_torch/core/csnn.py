@@ -23,7 +23,7 @@ from torch import nn
 
 from .encoding import mttfs_thresholds, multi_threshold_encode
 from .plan import NetworkPlan, plan_network
-from .scheduler import (LayerStats, init_conv_carry,
+from .scheduler import (LayerStats, head_product, init_conv_carry,
                         run_conv_layer_batched_chunk)
 
 
@@ -117,8 +117,7 @@ def init_state(params: dict, cfg: CSNNConfig, plan: NetworkPlan,
 
 def snn_step_chunk(params: dict, state: CSNNState,
                    spikes_chunk: torch.Tensor, cfg: CSNNConfig,
-                   plan: NetworkPlan, *, backend: str = "cuda",
-                   collect_stats: bool = False):
+                   plan: NetworkPlan, *, collect_stats: bool = False):
     """Advance the batched pipeline by one chunk of time steps.
 
     spikes_chunk: (B, t_chunk, H, W, C_in) bool.  Each conv layer consumes
@@ -137,7 +136,7 @@ def snn_step_chunk(params: dict, state: CSNNState,
             p = params[f"conv{idx}"]
             x, carry, st = run_conv_layer_batched_chunk(
                 x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
-                state.convs[ci], backend=backend)
+                state.convs[ci])
             new_convs.append(carry)
             stats.append(st)
             ci += 1
@@ -150,8 +149,8 @@ def snn_step_chunk(params: dict, state: CSNNState,
 
 def snn_readout(params: dict, state: CSNNState, cfg: CSNNConfig,
                 plan: Optional[NetworkPlan] = None) -> torch.Tensor:
-    """Classification-unit readout: drive @ W + T * b, never thresholded.
-    The product runs in full float32 (TF32 disabled explicitly)."""
+    """Classification-unit readout: drive @ W + T * b, never thresholded
+    (the product is :func:`scheduler.head_product`)."""
     if plan is not None and plan.fc_capacity is not None:
         raise NotImplementedError(
             "fc_capacity (the event-driven sparse head) is not ported yet: "
@@ -160,8 +159,8 @@ def snn_readout(params: dict, state: CSNNState, cfg: CSNNConfig,
     for idx, spec in enumerate(cfg.layers):
         if not isinstance(spec, ConvSpec):
             p = params[f"fc{idx}"]
-            torch.backends.cuda.matmul.allow_tf32 = False
-            logits = state.fc_drive @ p["w"] + cfg.t_steps * p["b"]
+            logits = (head_product(state.fc_drive, p["w"])
+                      + cfg.t_steps * p["b"])
     if logits is None:
         raise ValueError("cfg has no FC head layer")
     return logits
@@ -191,7 +190,6 @@ def snn_apply_batched(
     plan: Optional[NetworkPlan] = None,
     *,
     collect_stats: bool = True,
-    backend: str = "cuda",
 ):
     """Event-driven m-TTFS inference for a sample batch.
 
@@ -209,7 +207,7 @@ def snn_apply_batched(
     for k in range(0, t, chunk):
         state, stats = snn_step_chunk(
             params, state, in_spikes[:, k:k + chunk], cfg, plan,
-            backend=backend, collect_stats=True)
+            collect_stats=True)
         chunk_stats.append(stats)
     logits = snn_readout(params, state, cfg, plan)
     if not collect_stats:

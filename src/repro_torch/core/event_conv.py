@@ -11,8 +11,8 @@ out-of-bounds detection: edge events write into it, and it is cropped.
 Integer datapaths saturate after every event (``quantization.acc``);
 saturating per event is not the same as clipping once at the end, so the
 plain loops here replay events one at a time, vectorized over the batch
-of queues.  These loops are the ``"torch"`` backend; the ``"cuda"``
-backend goes through the kernels in ``kernels/event_conv``.
+of queues.  ``replay_events_`` is the one plain event loop: the plain
+versions of the CUDA kernels (``kernels/event_conv/ref.py``) run it too.
 """
 from __future__ import annotations
 

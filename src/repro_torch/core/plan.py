@@ -34,16 +34,16 @@ from .geometry import GEOM_3X3, ConvGeometry
 
 _VM_DTYPES = {None: torch.float32, 8: torch.int8, 16: torch.int16}
 
-# Kernel variants a LayerPlan can pin (None = resolve from event_par +
-# backend).  "sequential" walks each queue one event at a time (the
-# sequential CUDA kernel on the "cuda" backend, the plain loop on
-# "torch"); "interlaced-cuda" feeds segment-padded queues to the
-# interlaced CUDA kernel.  "banked-jax" and "fused-handoff" are the JAX
-# package's plain-jnp variants: they are planned but raise at run time
-# until they are ported (NOT_PORTED names the ROADMAP item).
+# Kernel variants a LayerPlan can pin (None = resolve from event_par).
+# "sequential" walks each queue one event at a time (the sequential CUDA
+# kernel); "interlaced-cuda" feeds segment-padded queues to the
+# interlaced CUDA kernel.  The kernels' wrappers run their plain versions
+# for CPU tensors, so the device picks kernel or plain path, not the plan.
+# "banked-jax" and "fused-handoff" are the JAX package's plain-jnp
+# variants: they can be pinned but raise at run time until they are
+# ported (NOT_PORTED names the ROADMAP item).
 KERNEL_VARIANTS = ("sequential", "banked-jax", "interlaced-cuda",
                    "fused-handoff")
-BACKENDS = ("cuda", "torch")
 NOT_PORTED = ("not ported yet: see ROADMAP.md Queue 1, item "
               "'banked-jax / fused-handoff variants'")
 
@@ -89,19 +89,14 @@ class LayerPlan:
     variant: Optional[str] = None  # pinned kernel variant (KERNEL_VARIANTS)
     geometry: ConvGeometry = GEOM_3X3
 
-    def resolve_variant(self, backend: str = "cuda") -> str:
-        """Effective kernel variant under ``backend``: a pinned
-        :attr:`variant` wins; otherwise ``event_par > 1`` selects the
-        interlaced kernel on "cuda" (the JAX package's "pallas") and the
-        banked path on "torch" (JAX's "jax"), and ``event_par == 1`` the
-        sequential unit."""
-        if backend not in BACKENDS:
-            raise ValueError(f"backend={backend!r} must be one of {BACKENDS}")
+    def resolve_variant(self) -> str:
+        """Effective kernel variant: a pinned :attr:`variant` wins;
+        otherwise ``event_par > 1`` selects the interlaced kernel (the JAX
+        package's resolution under ``backend="pallas"``) and
+        ``event_par == 1`` the sequential unit."""
         if self.variant is not None:
             return self.variant
-        if self.event_par > 1:
-            return "interlaced-cuda" if backend == "cuda" else "banked-jax"
-        return "sequential"
+        return "interlaced-cuda" if self.event_par > 1 else "sequential"
 
     @property
     def vm_dtype(self) -> torch.dtype:
@@ -246,7 +241,7 @@ def plan_conv_layer(
     if variant is not None and variant not in KERNEL_VARIANTS:
         raise ValueError(f"variant={variant!r} must be one of "
                          f"{KERNEL_VARIANTS} (or None to resolve from "
-                         f"event_par + backend)")
+                         f"event_par)")
     if variant == "interlaced-cuda" and ep <= 1:
         raise ValueError(
             f"variant='interlaced-cuda' requires event_par > 1 (got {ep}): "

@@ -13,15 +13,13 @@ the Pallas kernels aliased their input the same way).
 
 Variants (``LayerPlan.resolve_variant``):
 
-* ``"sequential"`` — ``event_conv_cuda_batched`` on the "cuda" backend,
-  the plain batched event loop (``event_conv.apply_events_batched``) on
-  "torch";
+* ``"sequential"`` — ``event_conv_cuda_batched``;
 * ``"interlaced-cuda"`` — ``event_conv_cuda_interlaced_batched`` over
   segment-padded queues;
 * ``"banked-jax"`` / ``"fused-handoff"`` — not ported yet; they raise.
 
-The "cuda" backend's wrappers run their plain versions for CPU tensors,
-so the same code is the CPU reference path.
+The kernels' wrappers run their plain versions for CPU tensors, so the
+same code is the CPU reference path.
 """
 from __future__ import annotations
 
@@ -35,7 +33,6 @@ from repro_torch.kernels.threshold_pool.kernel import \
     threshold_pool_cuda_batched
 
 from .aeq import BatchedEventQueue, build_aeq_batched, segment_pad
-from .event_conv import apply_events_batched
 from .plan import NOT_PORTED, LayerPlan
 
 
@@ -87,8 +84,6 @@ def run_conv_layer_batched_chunk(
     v_t,
     lp: LayerPlan,
     carry: ConvCarry,
-    *,
-    backend: str = "cuda",
 ) -> tuple[torch.Tensor, ConvCarry, LayerStats]:
     """Step one conv layer through a chunk of time steps from ``carry``.
 
@@ -96,7 +91,7 @@ def run_conv_layer_batched_chunk(
     (spikes_out (B, t_chunk, H', W', C_out) bool, new carry, chunk
     LayerStats).  Chaining chunks equals one whole-T call.
     """
-    variant = lp.resolve_variant(backend)
+    variant = lp.resolve_variant()
     if variant in ("banked-jax", "fused-handoff"):
         raise NotImplementedError(f"variant {variant!r} is {NOT_PORTED}")
     if not isinstance(spikes_in, torch.Tensor):
@@ -111,7 +106,7 @@ def run_conv_layer_batched_chunk(
     sparsity = 1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
     return _run_chunk_from_events(
         queues, queues.count, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant, backend=backend)
+        kernels, bias, v_t, lp, carry, variant=variant)
 
 
 def _run_chunk_from_events(
@@ -126,7 +121,6 @@ def _run_chunk_from_events(
     carry: ConvCarry,
     *,
     variant: str,
-    backend: str,
 ) -> tuple[torch.Tensor, ConvCarry, LayerStats]:
     """Shared chunk body: consume the pre-built (t, B, C_in) queues."""
     b_sz, t_steps, h, w, c_in = shape
@@ -141,7 +135,6 @@ def _run_chunk_from_events(
     # one contiguous (B, cap[, 2]) slab per (t, c_in) launch
     coords = queues.coords.permute(0, 2, 1, 3, 4).contiguous()
     valid = queues.valid.permute(0, 2, 1, 3).contiguous()
-    qcounts = counts.permute(0, 2, 1)
     # weights cast like JAX's astype(vm.dtype) (truncation toward zero)
     kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
           .to(vm_dtype).contiguous())         # (n_blocks, C_in, kh, kw, Cb)
@@ -166,13 +159,9 @@ def _run_chunk_from_events(
                     event_conv_cuda_interlaced_batched(
                         vm, coords[t, ci], valid[t, ci], k_ci,
                         event_par=lp.event_par, out=vm)
-                elif backend == "cuda":
+                else:
                     event_conv_cuda_batched(vm, coords[t, ci], valid[t, ci],
                                             k_ci, out=vm)
-                else:
-                    vm.copy_(apply_events_batched(
-                        vm, coords[t, ci], valid[t, ci], qcounts[t, ci], k_ci,
-                        block=lp.block_e))
             threshold_pool_cuda_batched(
                 vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
                 halo=(hh, hw), fired_out=spikes[blk, t],
@@ -203,13 +192,19 @@ def run_fc_head_batched(spikes_in: torch.Tensor, weights: torch.Tensor,
                         bias: torch.Tensor,
                         capacity: Optional[int] = None) -> torch.Tensor:
     """Classification unit over a batch: (B, T, ...) -> (B, n_classes).
-    Integrate-only: drive @ W + T * b.  The product runs in full float32
-    (TF32 disabled explicitly)."""
+    Integrate-only: drive @ W + T * b (:func:`head_product`)."""
     if capacity is not None:
         raise NotImplementedError(
             "fc_capacity (the event-driven sparse head) is not ported yet: "
             "see ROADMAP.md Queue 1, 'fc_capacity sparse head'")
     b_sz, t_steps = spikes_in.shape[:2]
     drive = spikes_in.reshape(b_sz, t_steps, -1).to(weights.dtype).sum(1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return drive @ weights + t_steps * bias
+    return head_product(drive, weights) + t_steps * bias
+
+
+def head_product(drive: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``drive @ weights`` for the exact-integer spike-count drive, summed
+    in float64 and rounded once to the weights' dtype.  No float32 (and so
+    no TF32) product is involved, whatever the caller's
+    ``torch.backends.cuda.matmul.allow_tf32``."""
+    return (drive.double() @ weights.double()).to(weights.dtype)

@@ -106,12 +106,12 @@ def test_speed_rules_equal_jax_formulas_at_same_budget(budget):
 
 def test_resolve_variant_and_unported_paths():
     tp = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4])
-    assert [lp.resolve_variant("cuda") for lp in tp.layers] == [
+    assert [lp.resolve_variant() for lp in tp.layers] == [
         "sequential", "interlaced-cuda"]
-    assert [lp.resolve_variant("torch") for lp in tp.layers] == [
-        "sequential", "banked-jax"]
-    with pytest.raises(ValueError, match="backend"):
-        tp.layers[0].resolve_variant("pallas")
+    pinned = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4],
+                                variant="banked-jax")
+    assert [lp.resolve_variant() for lp in pinned.layers] == [
+        "banked-jax", "banked-jax"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tplan.plan_network(tpaper.SMOKE, tune="measured")
     with pytest.raises(ValueError, match="requires event_par > 1"):

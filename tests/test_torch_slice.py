@@ -105,14 +105,15 @@ def test_snn_apply_batched_matches_jax_pallas(cfgs, event_par, sat_bits):
         np.testing.assert_array_equal(np.asarray(jstate.fc_drive),
                                       state.fc_drive.numpy())
     if event_par > 1:
-        # the plain torch backend has no banked path yet
+        # the sequential unit over the same segment-padded queues agrees;
+        # the JAX package's banked path is not ported yet
+        seq_logits = tc.snn_apply_batched(
+            params, tspikes, tcfg, tplan(tcfg, variant="sequential", **kw),
+            collect_stats=False)
+        assert torch.equal(seq_logits, logits)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.snn_apply_batched(params, tspikes, tcfg, plan, backend="torch")
-    else:
-        torch_logits = tc.snn_apply_batched(params, tspikes, tcfg, plan,
-                                            backend="torch",
-                                            collect_stats=False)
-        assert torch.equal(torch_logits, logits)
+            tc.snn_apply_batched(params, tspikes, tcfg,
+                                 tplan(tcfg, variant="banked-jax", **kw))
 
 
 def test_csnn_module_forward_and_keys():
@@ -179,3 +180,23 @@ def test_fc_head_batched_matches_jax():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         thead(torch.from_numpy(spikes), torch.from_numpy(w),
               torch.from_numpy(b), capacity=4)
+
+
+def test_fc_head_leaves_global_matmul_flags():
+    """The head product sums in float64, so it neither reads nor sets the
+    process-wide TF32 switch."""
+    from repro_torch.core.scheduler import run_fc_head_batched as thead
+    rng = np.random.default_rng(5)
+    spikes = torch.from_numpy(rng.random((2, 3, 4, 4, 2)) < 0.5)
+    w = torch.from_numpy(rng.normal(size=(32, 10)).astype(np.float32))
+    b = torch.zeros(10)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            got = thead(spikes, w, b)
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+            drive = spikes.reshape(2, 3, -1).sum(1).double()
+            assert torch.equal(got, (drive @ w.double()).float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
