@@ -11,23 +11,29 @@ Phases (any failure exits non-zero before the result line):
 3. hold each kernel against its plain PyTorch version on the card with
    ``torch.equal``: FULL-path shapes, k in {1, 3, 5}, float32/int16/int8,
    truncated and segment-padded queues, a tile over 48 KB, repeated
-   coordinates in an interlaced group;
-4. the main path: ``snn_apply_batched``'s steps (``init_state``,
+   coordinates in an interlaced group; the emit-mode threshold kernel at
+   FULL tiles with pool None/3 and capacities 16, 256 and 784, relaunched
+   into buffers filled with stale bits; the banked conv over truncating
+   carriers of 32 input channels;
+4. the main paths: ``snn_apply_batched``'s steps (``init_state``,
    ``snn_step_chunk``, ``snn_readout``) on ``csnn_paper.FULL`` with B=8
-   under the serve plan (interlaced) and with ``event_par=1``, each held
+   under the serve plan (interlaced), with ``event_par=1``, with every
+   layer pinned to ``"fused-handoff"`` and to ``"banked-cuda"``, each held
    against the port's plain path on the CPU (spikes, counts and carried
-   state exact; logits within tolerance; argmax equal); then
-   ``csnn_wide.FULL`` once, held the same way;
+   state exact; logits within tolerance; argmax equal); the fused and
+   banked runs held against the serve plan's card run, and the fused run
+   repeated; then ``csnn_wide.FULL`` under the serve plan and fused
+   (a 5x5 layer at the network edge), held the same way;
 5. print the launch counters of each main-path run, each read from
-   counters set to 0 just before that run: the serve plan launches the
-   interlaced conv and the threshold kernel, ``event_par=1`` the
-   sequential conv and the threshold kernel (each must be > 0);
+   counters set to 0 just before that run: each run must launch every
+   kernel of its path (``PATH_KERNELS``) and no other;
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` and print its lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick; then end-to-end
-   samples/s and a ``torch.profiler`` breakdown of one forward.
+   samples/s of every path and a ``torch.profiler`` breakdown of one
+   forward of the serve, event_par=1 and fused plans.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -234,9 +240,69 @@ def check_kernels(dev) -> dict:
                 same(f"threshold_pool spikes {tag}", sk, sr)
                 if pool is not None:
                     same(f"threshold_pool pooled {tag}", pk, pr)
+    check_banked_and_emit(g, dev, same)
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
+
+
+def check_banked_and_emit(g, dev, same) -> None:
+    """Phase 3, slice 2: the emit-mode threshold kernel at FULL tiles and
+    the banked conv over truncating carriers of 32 input channels."""
+    import torch
+
+    from repro_torch.core.aeq import build_fused_handoff
+    from repro_torch.core.event_conv import tap_matrix
+    from repro_torch.core.geometry import ConvGeometry
+    from repro_torch.kernels.event_conv.kernel import event_conv_cuda_banked
+    from repro_torch.kernels.event_conv.ref import event_conv_ref_banked
+    from repro_torch.kernels.threshold_pool.kernel import \
+        threshold_pool_cuda_emit
+    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+
+    names = ("spikes", "pooled", "masks", "count", "seg_counts")
+    for k in (1, 3, 5):
+        geom, hh = ConvGeometry(k, k), k // 2
+        for dtype in (torch.float32, torch.int16, torch.int8):
+            tag = f"k={k} {dtype}"
+            # the emit kernel: FULL producer tiles, the consumer's k x k
+            for pool in (None, 3):
+                for cap in (16, 256, 784):
+                    vm = rand_tile(g, (B, 28 + 2 * hh, 28 + 2 * hh, 8), dtype,
+                                   dev)
+                    bias = rand_kernel(g, (8,), dtype, dev)
+                    fired = (torch.rand((B, 28, 28, 8), generator=g)
+                             < 0.1).to(dev)
+                    v_t = 0.5 if dtype == torch.float32 else 20
+                    vm_k, vm_r = vm.clone(), vm.clone()
+                    args = dict(v_t=v_t, pool=pool, halo=(hh, hh),
+                                emit_capacity=cap, emit_geometry=geom)
+                    outs = threshold_pool_cuda_emit(vm_k, bias, fired, **args)
+                    # stale bits: relaunch into the same buffers, filled
+                    for o in outs:
+                        if o is not None:
+                            o.fill_(1)
+                    vm_k = vm.clone()
+                    outs = threshold_pool_cuda_emit(
+                        vm_k, bias, fired, **args, fired_out=outs[0],
+                        pooled_out=outs[1], masks_out=outs[2],
+                        count_out=outs[3], seg_counts_out=outs[4])
+                    want = threshold_pool_tile_ref(vm_r, bias, fired, **args)
+                    etag = f"{tag} pool={pool} capacity={cap}"
+                    same(f"threshold_pool_emit vm {etag}", vm_k, vm_r)
+                    for name, a, b in zip(names, outs, want):
+                        if a is not None:
+                            same(f"threshold_pool_emit {name} {etag}", a, b)
+            # the banked conv: 32 input channels, one truncating time step
+            spikes = (torch.rand((B, 1, 28, 28, 32), generator=g)
+                      < 0.5).to(dev)
+            ho = build_fused_handoff(spikes, 256, geom)
+            vm = rand_tile(g, (B, 28 + 2 * hh, 28 + 2 * hh, 8), dtype, dev)
+            taps = tap_matrix(rand_kernel(g, (k, k, 32, 8), dtype, dev))
+            taps = taps.permute(2, 0, 1, 3).contiguous()
+            same(f"event_conv_banked {tag}",
+                 event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom),
+                 event_conv_ref_banked(vm, ho.masks[0], taps, geom))
 
 
 # --------------------------------------------------------------- phase 4
@@ -276,21 +342,42 @@ def hold(name, got, want) -> None:
           f"classes {lg.argmax(-1).tolist()}")
 
 
-# The kernels each main-path run must launch; the JSON line reports each
-# kernel's count from the first run listed here that launches it.
+def hold_same(name, got, want) -> None:
+    """Two card runs of one network: spikes, counts, carried state and FC
+    drive exact."""
+    import torch
+    (_, sg, stg), (_, sw, stw) = got, want
+    for i, (a, b) in enumerate(zip(sg, sw)):
+        for f in ("in_spike_counts", "out_spike_counts"):
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                fail(f"{name}: layer {i} {f} differ")
+    for i, (a, b) in enumerate(zip(stg.convs, stw.convs)):
+        if not (torch.equal(a.vm, b.vm) and torch.equal(a.fired, b.fired)):
+            fail(f"{name}: layer {i} carried vm/fired differ")
+    if not torch.equal(stg.fc_drive, stw.fc_drive):
+        fail(f"{name}: FC drive differs")
+    print(f"{name}: equal (spikes, counts, state, FC drive exact)")
+
+
+# The kernels each main-path run launches, and no other: the JSON line
+# reports each kernel's count from the first run listed here that
+# launches it.
 PATH_KERNELS = {
     "serve plan (interlaced)": ("event_conv_interlaced", "threshold_pool"),
     "event_par=1 (sequential)": ("event_conv_seq", "threshold_pool"),
+    "fused-handoff": ("event_conv_banked", "threshold_pool_emit",
+                      "threshold_pool"),
+    "banked-cuda": ("event_conv_banked", "threshold_pool"),
 }
 
 
 def main_path(dev, cfg, wcfg):
-    """Phases 4-5: the main path on the card, held against the CPU plain
-    path.  Returns (launch counts per kernel, params, images, serve plan,
-    seq plan)."""
+    """Phases 4-5: the main paths on the card, each held against the CPU
+    plain path.  Returns (launch counts per kernel, params, images, plans
+    by path name)."""
     import torch
 
-    from repro_torch.core.csnn import encode_input, init_params
+    from repro_torch.core.csnn import ConvSpec, encode_input, init_params
     from repro_torch.core.plan import plan_network
     from repro_torch.kernels import runtime
 
@@ -302,35 +389,52 @@ def main_path(dev, cfg, wcfg):
     imgs = torch.rand((B, h, w, cfg.input_channels),
                       generator=torch.Generator().manual_seed(1))
     spikes = encode_input(imgs.to(dev), cfg)
-    serve_plan = plan_network(cfg, capacity=256, channel_block=8,
-                              batch_tile=8, event_par=None)
-    seq_plan = plan_network(cfg, capacity=256, channel_block=8,
-                            batch_tile=8, event_par=1)
-    print(f"serve plan:\n{serve_plan}")
+    knobs = dict(capacity=256, channel_block=8, batch_tile=8)
+    n_conv = sum(isinstance(s, ConvSpec) for s in cfg.layers)
+    plans = dict(zip(PATH_KERNELS, (
+        plan_network(cfg, event_par=None, **knobs),
+        plan_network(cfg, event_par=1, **knobs),
+        plan_network(cfg, variant=["fused-handoff"] * n_conv, **knobs),
+        plan_network(cfg, variant=["banked-cuda"] * n_conv, **knobs))))
+    print(f"serve plan:\n{plans['serve plan (interlaced)']}")
     got, launches = {}, {}
-    for (path, kernels), plan in zip(PATH_KERNELS.items(),
-                                     (serve_plan, seq_plan)):
+    for path, kernels in PATH_KERNELS.items():
         runtime.reset_launches()
-        got[path] = forward(params, spikes, cfg, plan)
+        got[path] = forward(params, spikes, cfg, plans[path])
         torch.cuda.synchronize()
         counts = dict(runtime.LAUNCHES)
         print(f"launches per forward, {path}: {counts}")
-        for k in kernels:
-            if counts[k] <= 0:
+        for k, n in counts.items():
+            if k in kernels and n <= 0:
                 fail(f"kernel {k} was never launched on the {path} path")
-            launches.setdefault(k, counts[k])
-    for path, plan in zip(PATH_KERNELS, (serve_plan, seq_plan)):
+            if k not in kernels and n:
+                fail(f"kernel {k} was launched {n}x on the {path} path")
+            if k in kernels:
+                launches.setdefault(k, n)
+    for path, plan in plans.items():
         hold(f"csnn_paper.FULL {path}", got[path],
              forward(to_cpu(params), spikes.cpu(), cfg, plan))
+    serve = got["serve plan (interlaced)"]
+    for path in ("fused-handoff", "banked-cuda"):
+        hold_same(f"csnn_paper.FULL {path} vs serve plan (card)", got[path],
+                  serve)
+    # again: the caching allocator hands the first run's freed carrier
+    # blocks back, so bits left stale by the emit kernel would show here
+    hold_same("csnn_paper.FULL fused-handoff, second run",
+              forward(params, spikes, cfg, plans["fused-handoff"]),
+              got["fused-handoff"])
     wparams = init_params(wcfg, seed=0, device=dev)
-    wplan = plan_network(wcfg, capacity=256, channel_block=8, event_par=None)
     wspikes = encode_input(imgs.to(dev), wcfg)
-    hold("csnn_wide.FULL serve plan", forward(wparams, wspikes, wcfg, wplan),
-         forward(to_cpu(wparams), wspikes.cpu(), wcfg, wplan))
-    return launches, params, imgs, serve_plan, seq_plan
+    for name, variant, ep in (("serve plan", None, None),
+                              ("fused-handoff", "fused-handoff", 1)):
+        wplan = plan_network(wcfg, capacity=256, channel_block=8,
+                             event_par=ep, variant=variant)
+        hold(f"csnn_wide.FULL {name}", forward(wparams, wspikes, wcfg, wplan),
+             forward(to_cpu(wparams), wspikes.cpu(), wcfg, wplan))
+    return launches, params, imgs, plans
 
 
-def timing(dev, cfg, params, imgs, serve_plan, seq_plan, card):
+def timing(dev, cfg, params, imgs, plans, card):
     """Phase 7: each kernel at the conv1 shapes of this run's data (CUDA
     events, mean per launch over every (t, c_in) launch of channel block
     0), its plain version on the card, its bound and a library yardstick;
@@ -349,6 +453,8 @@ def timing(dev, cfg, params, imgs, serve_plan, seq_plan, card):
         threshold_pool_cuda_batched
     from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
 
+    serve_plan = plans["serve plan (interlaced)"]
+    seq_plan = plans["event_par=1 (sequential)"]
     spikes = encode_input(imgs.to(dev), cfg)
     lp0, lp1, lp1s = serve_plan.layers[0], serve_plan.layers[1], seq_plan.layers[1]
     x1, _, _ = run_conv_layer_batched_chunk(
@@ -458,8 +564,14 @@ def timing(dev, cfg, params, imgs, serve_plan, seq_plan, card):
         return B / statistics.median(ts)
 
     sps_int, sps_seq = samples_per_s(serve_plan), samples_per_s(seq_plan)
+    sps_fused = samples_per_s(plans["fused-handoff"])
+    sps_banked = samples_per_s(plans["banked-cuda"])
     device_profile(forward_fn(serve_plan), "serve plan forward", B / sps_int)
     device_profile(forward_fn(seq_plan), "event_par=1 forward", B / sps_seq)
+    device_profile(forward_fn(plans["fused-handoff"]), "fused-handoff forward",
+                   B / sps_fused)
+    fused = timing_fused(dev, cfg, params, spikes, plans["fused-handoff"],
+                         card)
     tag = f"[{card}]"
     print(f"timing event_conv_interlaced (conv1, B={B}, depth "
           f"{lp1.queue_depth}, event_par {ep}, f32): device {t_int:.5f} "
@@ -473,7 +585,9 @@ def timing(dev, cfg, params, imgs, serve_plan, seq_plan, card):
           f"{lp1.pool}, f32): device {t_thr:.5f} ms/launch, host-bound "
           f"{h_thr:.5f}, plain {p_thr:.4f}, bound {b_thr:.6f} (bytes) {tag}")
     print(f"timing end-to-end csnn_paper.FULL B={B}: serve plan "
-          f"{sps_int:.1f} samples/s, event_par=1 {sps_seq:.1f} samples/s {tag}")
+          f"{sps_int:.1f} samples/s, event_par=1 {sps_seq:.1f} samples/s, "
+          f"fused-handoff {sps_fused:.1f} samples/s, banked-cuda "
+          f"{sps_banked:.1f} samples/s {tag}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     return [
@@ -491,6 +605,113 @@ def timing(dev, cfg, params, imgs, serve_plan, seq_plan, card):
              source=src + "threshold_pool.cu",
              replaces=ref + "threshold_pool/kernel.py:68", ms=t_thr,
              plain_ms=p_thr, bound_ms=b_thr, bound_by="bytes",
+             library_ms=None),
+    ] + fused
+
+
+def timing_fused(dev, cfg, params, spikes, fplan, card) -> list:
+    """Phase 7, slice 2: the emit kernel at the conv0 -> conv1 handoff and
+    the banked conv at conv1, on this run's data (conv0 of the fused plan
+    emits the carrier conv1 consumes).  Returns their kernel records."""
+    import torch
+
+    from repro_torch.core.aeq import deinterlace
+    from repro_torch.core.event_conv import tap_matrix
+    from repro_torch.core.scheduler import (init_conv_carry,
+                                            run_conv_layer_batched_chunk)
+    from repro_torch.kernels.event_conv.kernel import event_conv_cuda_banked
+    from repro_torch.kernels.event_conv.ref import event_conv_ref_banked
+    from repro_torch.kernels.threshold_pool.kernel import \
+        threshold_pool_cuda_emit
+    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+
+    lp0, lp1 = fplan.layers[:2]
+    ho, carry0, _ = run_conv_layer_batched_chunk(
+        spikes, params["conv0"]["w"], params["conv0"]["b"], cfg.v_t, lp0,
+        init_conv_carry(lp0, B, device=dev),
+        emit=(lp1.capacity, lp1.geometry))
+    tag = f"[{card}]"
+
+    # emit: conv0's channel block 0, its tile and latch after the run
+    cb0 = lp0.channel_block
+    vm_e = carry0.vm[..., :cb0].contiguous()
+    fired_e = carry0.fired[..., :cb0].contiguous()
+    bias_e = params["conv0"]["b"][:cb0].contiguous()
+    args = dict(v_t=cfg.v_t, pool=lp0.pool, halo=lp0.geometry.halo,
+                emit_capacity=lp1.capacity, emit_geometry=lp1.geometry)
+    outs = threshold_pool_cuda_emit(vm_e.clone(), bias_e, fired_e, **args)
+    names = ("fired_out", "pooled_out", "masks_out", "count_out",
+             "seg_counts_out")
+    bufs = dict(zip(names, outs))
+
+    def emit_k():
+        threshold_pool_cuda_emit(vm_e, bias_e, fired_e, **args, **bufs)
+
+    t_emit = graph_time_ms(lambda: [emit_k() for _ in range(50)]) / 50
+    h_emit = cuda_time_ms(emit_k, 200)
+    p_emit = cuda_time_ms(lambda: threshold_pool_tile_ref(
+        vm_e, bias_e, fired_e, **args), 20)
+    h, w = lp0.in_hw
+    cells = B * h * w * cb0
+    out_bytes = sum(o.numel() * o.element_size() for o in outs
+                    if o is not None)
+    e_bytes = cells * (2 * vm_e.element_size() + 1) + cb0 * 4 + out_bytes
+    # bias add, compare, latch OR per neuron; scan add and rank compare
+    # per emitted cell
+    e_ops = 3 * cells + 2 * outs[1 if lp0.pool else 0].numel()
+    tb, to = e_bytes / PEAK_BYTES, e_ops / PEAK_F32
+    b_emit, by_emit = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    print(f"timing threshold_pool_emit (conv0 -> conv1, B={B}, {h}x{w}x{cb0}"
+          f", capacity {lp1.capacity}, f32): device {t_emit:.5f} ms/launch, "
+          f"host-bound {h_emit:.5f}, plain {p_emit:.4f}, bound {b_emit:.6f} "
+          f"({by_emit}) {tag}")
+
+    # banked conv: conv1's channel block 0 over every step of the carrier
+    cb1 = lp1.channel_block
+    hp, wp, _ = lp1.vm_tile
+    hh, hw = lp1.geometry.halo
+    kern1 = params["conv1"]["w"][..., :cb1]
+    taps = tap_matrix(kern1).permute(2, 0, 1, 3).contiguous()
+    vm1 = torch.zeros((B, hp, wp, cb1), device=dev)
+    slabs = [ho.masks[t] for t in range(ho.masks.shape[0])]
+
+    def conv_k():
+        for m in slabs:
+            event_conv_cuda_banked(vm1, m, taps, geometry=lp1.geometry, out=vm1)
+
+    t_conv = graph_time_ms(conv_k) / len(slabs)
+    h_conv = cuda_time_ms(conv_k, 5) / len(slabs)
+    p_conv = cuda_time_ms(lambda: [event_conv_ref_banked(
+        vm1, m, taps, lp1.geometry) for m in slabs], 1) / len(slabs)
+    # yardstick: fp32 conv2d (TF32 off) of the dense map of the kept events
+    dense = [deinterlace(m[..., 1:-1, 1:-1], (hp, wp), lp1.geometry)
+             [..., hh:hp - hh, hw:wp - hw].permute(1, 0, 2, 3).float()
+             .contiguous() for m in slabs]
+    weight = kern1.permute(3, 2, 0, 1).contiguous()
+    t_lib = graph_time_ms(lambda: [torch.nn.functional.conv2d(
+        d, weight, padding=lp1.geometry.halo) for d in dense]) / len(dense)
+    c_bytes = (2 * vm1.numel() * 4 + taps.numel() * 4
+               + sum(m.numel() for m in slabs) / len(slabs))
+    c_ops = (sum(int(m.sum()) for m in slabs) / len(slabs)
+             * lp1.geometry.n_banks * cb1)
+    tb, to = c_bytes / PEAK_BYTES, c_ops / PEAK_F32
+    b_conv, by_conv = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    print(f"timing event_conv_banked (conv1, B={B}, tile {hp}x{wp}x{cb1}, "
+          f"{lp1.c_in} c_in per launch, capacity {lp1.capacity}, f32): device "
+          f"{t_conv:.5f} ms/launch, host-bound {h_conv:.5f}, plain "
+          f"{p_conv:.4f}, bound {b_conv:.6f} ({by_conv}), conv2d "
+          f"{t_lib:.5f} {tag}")
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        dict(name="event_conv_banked", route="cuda",
+             source=src + "event_conv_banked.cu",
+             replaces="src/repro/core/event_conv.py:393", ms=t_conv,
+             plain_ms=p_conv, bound_ms=b_conv, bound_by=by_conv,
+             library_ms=t_lib),
+        dict(name="threshold_pool_emit", route="cuda",
+             source=src + "threshold_pool.cu",
+             replaces="src/repro/kernels/threshold_pool/kernel.py:68",
+             ms=t_emit, plain_ms=p_emit, bound_ms=b_emit, bound_by=by_emit,
              library_ms=None),
     ]
 
@@ -521,7 +742,7 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
     max_err = check_kernels(dev)                         # phase 3
-    launches, params, imgs, serve_plan, seq_plan = main_path(  # phases 4-5
+    launches, params, imgs, plans = main_path(           # phases 4-5
         dev, csnn_paper.FULL, csnn_wide.FULL)
 
     env = dict(os.environ, PYTHONPATH=str(SRC))          # phase 6
@@ -533,8 +754,8 @@ def main() -> int:
     if serve.returncode != 0 or serve.stdout.count("req ") != 8:
         fail(f"serve exited {serve.returncode}:\n{serve.stderr}")
 
-    kernels = timing(dev, csnn_paper.FULL, params, imgs, serve_plan,  # phase 7
-                     seq_plan, card)
+    kernels = timing(dev, csnn_paper.FULL, params, imgs, plans,  # phase 7
+                     card)
     for k in kernels:
         k.update(launches=launches[k["name"]], max_abs_err=max_err[k["name"]])
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,12 @@ Every queue also carries its column segments (``seg_offsets`` /
 ``seg_counts``); ``segment_pad`` re-lays a queue so each segment starts
 at and is padded to a multiple of ``event_par`` — the layout the
 interlaced conv kernel consumes.
+
+The banked variants skip the queue: ``interlace`` lays a map out as the
+n_banks membrane RAM banks, ``ranked_keep`` truncates by cumulative ranks
+instead of a sort (the same kept events), and ``build_bank_masks`` /
+``build_fused_handoff`` place the kept events' centres into padded banks
+(``BankedEvents``; ``FusedHandoff``, the carrier between fused layers).
 """
 from __future__ import annotations
 
@@ -230,3 +236,211 @@ def scatter_aeq(queue: EventQueue, shape: tuple[int, int]) -> torch.Tensor:
     kept = queue.coords[queue.valid].long()
     fmap[kept[:, 0], kept[:, 1]] = True
     return fmap
+
+
+# ---------------------------------------------------------------------------
+# Memory interlacing (paper Fig. 6) and the banked / fused-handoff carriers.
+# ---------------------------------------------------------------------------
+
+def _pad_hw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Zero-pad the two trailing axes at their ends (any dtype, bool too)."""
+    if not (ph or pw):
+        return x
+    h, w = x.shape[-2:]
+    out = x.new_zeros(x.shape[:-2] + (h + ph, w + pw))
+    out[..., :h, :w] = x
+    return out
+
+
+def interlace(vm: torch.Tensor,
+              geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """(..., H, W) -> (..., n_banks, ceil(H/kh), ceil(W/kw)) memory columns.
+
+    Column s = kw*(i%kh) + (j%kw); within a column, the element of macro
+    cell (I, J) = (i//kh, j//kw) lives at address (I, J), so any kh x kw
+    window touches each column once.  Leading axes pass through.
+    """
+    kh, kw = geometry.kh, geometry.kw
+    *lead, h, w = vm.shape
+    vm = _pad_hw(vm, -h % kh, -w % kw)
+    hh, ww = vm.shape[-2:]
+    nl = len(lead)
+    blocks = vm.reshape(*lead, hh // kh, kh, ww // kw, kw)
+    blocks = blocks.permute(*range(nl), nl + 1, nl + 3, nl, nl + 2)
+    return blocks.reshape(*lead, kh * kw, hh // kh, ww // kw)
+
+
+def deinterlace(cols: torch.Tensor, shape: tuple[int, int],
+                geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """Inverse of :func:`interlace`, cropped back to (..., H, W)."""
+    kh, kw = geometry.kh, geometry.kw
+    *lead, _, bh, bw = cols.shape
+    nl = len(lead)
+    blocks = cols.reshape(*lead, kh, kw, bh, bw)
+    blocks = blocks.permute(*range(nl), nl + 2, nl, nl + 3, nl + 1)
+    return blocks.reshape(*lead, bh * kh, bw * kw)[..., :shape[0], :shape[1]]
+
+
+class BankedEvents(NamedTuple):
+    """Kept events of a queue, laid out as the n_banks membrane RAM banks.
+
+    masks: (..., n_banks, HB, WB) bool — a kept event's halo-padded centre
+        (i+hh, j+hw) sits in padded-space bank kw*((i+hh)%kh)+(j+hw)%kw at
+        macro cell ((i+hh)//kh, (j+hw)//kw): ``event_conv.bank_vm``'s
+        banking of the membrane tile.
+    count: (...,) int32 spike demand (may exceed the kept events).
+    seg_counts: (..., n_banks) int32 kept events per interlace column s.
+    """
+
+    masks: torch.Tensor
+    count: torch.Tensor
+    seg_counts: torch.Tensor
+
+
+def ranked_keep(il: torch.Tensor, capacity: int, hw: tuple[int, int]
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free capacity truncation on interlaced occupancy.
+
+    il: (..., n_banks, HB, WB) bool centre-bank occupancy of an unpadded
+    (H, W) fmap.  Within a column, (I, J) raster order is the (i, j)
+    order, so an event's rank in the (s, i, j) read order is the events of
+    earlier columns plus the earlier events of its column (exclusive
+    cumulative sums); truncation keeps ranks below min(capacity, H*W),
+    which is ``build_aeq_batched``'s tail drop.  Returns (kept occupancy,
+    count (...,) int32 demand, seg_counts (..., n_banks) int32 kept per
+    column).
+    """
+    h, w = hw
+    hb, wb = il.shape[-2:]
+    il_flat = il.reshape(il.shape[:-2] + (hb * wb,))
+    seg_full = il_flat.sum(dim=-1, dtype=torch.int32)
+    count = seg_full.sum(dim=-1, dtype=torch.int32)
+    seg_off = torch.cumsum(seg_full, dim=-1, dtype=torch.int32) - seg_full
+    kept = torch.clamp(count, max=min(capacity, h * w))
+    seg_counts = torch.minimum(torch.clamp(kept[..., None] - seg_off, min=0),
+                               seg_full)
+    if capacity >= h * w:
+        return il, count, seg_counts
+    il_i = il_flat.to(torch.int32)
+    rank = seg_off[..., None] + torch.cumsum(il_i, dim=-1,
+                                             dtype=torch.int32) - il_i
+    kept_il = il_flat & (rank < kept[..., None, None])
+    return kept_il.reshape(il.shape), count, seg_counts
+
+
+def place_padded_banks(kept_il: torch.Tensor, hw: tuple[int, int],
+                       geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """Re-bank unpadded centre occupancy into the padded fused layout.
+
+    kept_il: (..., n_banks, HB, WB) bool over the unpadded fmap.  Returns
+    (..., n_banks, HBp+2, WBp+2) bool: column s's cells land in the
+    padded-space centre bank ((si+hh)%kh)*kw + (sj+hw)%kw at the static
+    macro offset (1 + (si+hh)//kh, 1 + (sj+hw)//kw) — the masks of
+    :func:`build_bank_masks` with one zero macro cell per side.
+    """
+    h, w = hw
+    kh, kw = geometry.kh, geometry.kw
+    hh, hw_ = geometry.halo
+    nb = geometry.n_banks
+    hb, wb = kept_il.shape[-2:]
+    hbp, wbp = -(-(h + 2 * hh) // kh), -(-(w + 2 * hw_) // kw)
+    mp = kept_il.new_zeros(kept_il.shape[:-3] + (nb, hbp + 2, wbp + 2))
+    for s in range(nb):
+        si, sj = divmod(s, kw)
+        tb = ((si + hh) % kh) * kw + (sj + hw_) % kw
+        oi = 1 + (si + hh) // kh
+        oj = 1 + (sj + hw_) // kw
+        mp[..., tb, oi:oi + hb, oj:oj + wb] = kept_il[..., s, :, :]
+    return mp
+
+
+def build_bank_masks(fmaps: torch.Tensor, capacity: int,
+                     geometry: ConvGeometry = GEOM_3X3) -> BankedEvents:
+    """Compact binary fmaps (..., H, W) straight into the n_banks RAM banks:
+    the kept events (the first min(capacity, H*W) in (s, i, j) order, as
+    in the queue) by cumulative ranks (:func:`ranked_keep`), banked in
+    padded space."""
+    *lead, h, w = fmaps.shape
+    hh, hw_ = geometry.halo
+    n = math.prod(lead)
+    flat = fmaps.reshape(n, h, w).to(torch.bool)
+    kept_il, count, seg_counts = ranked_keep(interlace(flat, geometry),
+                                             capacity, (h, w))
+    kept_map = deinterlace(kept_il, (h, w), geometry)
+    padded = kept_map.new_zeros((n, h + 2 * hh, w + 2 * hw_))
+    padded[:, hh:hh + h, hw_:hw_ + w] = kept_map
+    masks = interlace(padded, geometry)
+    return BankedEvents(masks=masks.reshape(*lead, *masks.shape[-3:]),
+                        count=count.reshape(tuple(lead)),
+                        seg_counts=seg_counts.reshape(*lead,
+                                                      geometry.n_banks))
+
+
+class FusedHandoff(NamedTuple):
+    """Fused spike-emission carrier between adjacent conv layers.
+
+    masks: (T, C, B, n_banks, HBp+2, WBp+2) bool — the kept events'
+        centre-bank occupancy (the content of :class:`BankedEvents` masks)
+        with one zero macro cell per side, laid out time-major and then
+        input-channel-major for the consumer.
+    count: (T, B, C) int32 spike demand per queue, before truncation.
+    """
+
+    masks: torch.Tensor
+    count: torch.Tensor
+
+
+def handoff_shape(t_steps: int, c: int, b: int, hw: tuple[int, int],
+                  geometry: ConvGeometry = GEOM_3X3) -> tuple:
+    """Shape of :attr:`FusedHandoff.masks` for an (H, W) fmap under
+    ``geometry`` (the consumer's window)."""
+    h, w = hw
+    hh, hw_ = geometry.halo
+    return (t_steps, c, b, geometry.n_banks,
+            -(-(h + 2 * hh) // geometry.kh) + 2,
+            -(-(w + 2 * hw_) // geometry.kw) + 2)
+
+
+def check_handoff(ho: FusedHandoff, c: int, hw: tuple[int, int],
+                  geometry: ConvGeometry = GEOM_3X3) -> None:
+    """Raise unless ``ho`` is a carrier of C-channel (H, W) fmaps under
+    ``geometry``: the bank count and the padded bank grid must be the
+    consumer's, or its slices would read the wrong cells."""
+    if ho.masks.ndim != 6 or ho.masks.dtype != torch.bool:
+        raise ValueError(f"carrier masks must be (T, C, B, n_banks, HBp+2, "
+                         f"WBp+2) bool, got {tuple(ho.masks.shape)} "
+                         f"{ho.masks.dtype}")
+    t_steps, _, b = ho.masks.shape[:3]
+    want = handoff_shape(t_steps, c, b, hw, geometry)
+    if ho.masks.shape[3] != want[3]:
+        raise ValueError(f"carrier must carry {want[3]} columns for the "
+                         f"{geometry.kh}x{geometry.kw} geometry, got "
+                         f"{ho.masks.shape[3]}")
+    if tuple(ho.masks.shape) != want:
+        raise ValueError(f"carrier masks {tuple(ho.masks.shape)} do not "
+                         f"match hw={tuple(hw)}, c={c} under the "
+                         f"{geometry.kh}x{geometry.kw} geometry (want "
+                         f"{want})")
+    if tuple(ho.count.shape) != (t_steps, b, c) or ho.count.dtype != torch.int32:
+        raise ValueError(f"carrier count must be ({t_steps}, {b}, {c}) int32, "
+                         f"got {tuple(ho.count.shape)} {ho.count.dtype}")
+
+
+def build_fused_handoff(spikes: torch.Tensor, capacity: int,
+                        geometry: ConvGeometry = GEOM_3X3) -> FusedHandoff:
+    """Compact a (B, T, H, W, C) spike chunk straight into the fused
+    handoff carrier: one reshape/permute interlaces the chunk,
+    :func:`ranked_keep` truncates, :func:`place_padded_banks` banks the
+    kept centres.  Mask content and counts equal :func:`build_bank_masks`
+    over the same fmaps."""
+    b, t, h, w, c = spikes.shape
+    kh, kw = geometry.kh, geometry.kw
+    x = _pad_hw(spikes.to(torch.bool).movedim(-1, 2), -h % kh, -w % kw)
+    hb, wb = x.shape[-2] // kh, x.shape[-1] // kw
+    # (B, T, C, HB, kh, WB, kw) -> (T, C, B, kh, kw, HB, WB): interlace's
+    # bank order s = kw*(i%kh) + j%kw
+    il = x.reshape(b, t, c, hb, kh, wb, kw).permute(1, 2, 0, 4, 6, 3, 5)
+    il = il.reshape(t, c, b, geometry.n_banks, hb, wb)
+    kept_il, count, _ = ranked_keep(il, capacity, (h, w))
+    return FusedHandoff(masks=place_padded_banks(kept_il, (h, w), geometry),
+                        count=count.transpose(1, 2).contiguous())

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from .encoding import mttfs_thresholds, multi_threshold_encode
-from .plan import NetworkPlan, plan_network
+from .plan import NOT_PORTED, NetworkPlan, plan_network
 from .scheduler import (LayerStats, head_product, init_conv_carry,
                         run_conv_layer_batched_chunk)
 
@@ -124,19 +124,27 @@ def snn_step_chunk(params: dict, state: CSNNState,
     the chunk from its carry; the head drive accumulates the last conv
     layer's spikes.  Returns the new state, or (state, [LayerStats, ...])
     with ``collect_stats``.
+
+    The layer boundary: when the next conv layer is pinned to
+    ``"fused-handoff"``, the producer emits that layer's
+    ``aeq.FusedHandoff`` carrier from its threshold kernel (the JAX
+    package builds the same carrier here with ``build_fused_handoff``),
+    and the carrier passes in place of the dense spikes.
     """
     if not isinstance(spikes_chunk, torch.Tensor):
-        raise NotImplementedError(
-            "streamed (StreamState) input is not ported yet: see ROADMAP.md "
-            "Queue 1, 'Streaming ingestion'")
+        raise NotImplementedError(NOT_PORTED["stream"])
     x, stats, ci = spikes_chunk, [], 0
+    n_conv = len(plan.layers)
     new_convs = []
     for idx, spec in enumerate(cfg.layers):
         if isinstance(spec, ConvSpec):
             p = params[f"conv{idx}"]
+            nxt = plan.layers[ci + 1] if ci + 1 < n_conv else None
+            emit = ((nxt.capacity, nxt.geometry) if nxt is not None
+                    and nxt.resolve_variant() == "fused-handoff" else None)
             x, carry, st = run_conv_layer_batched_chunk(
                 x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
-                state.convs[ci])
+                state.convs[ci], emit=emit)
             new_convs.append(carry)
             stats.append(st)
             ci += 1
@@ -152,9 +160,7 @@ def snn_readout(params: dict, state: CSNNState, cfg: CSNNConfig,
     """Classification-unit readout: drive @ W + T * b, never thresholded
     (the product is :func:`scheduler.head_product`)."""
     if plan is not None and plan.fc_capacity is not None:
-        raise NotImplementedError(
-            "fc_capacity (the event-driven sparse head) is not ported yet: "
-            "see ROADMAP.md Queue 1, 'fc_capacity sparse head'")
+        raise NotImplementedError(NOT_PORTED["fc_capacity"])
     logits = None
     for idx, spec in enumerate(cfg.layers):
         if not isinstance(spec, ConvSpec):

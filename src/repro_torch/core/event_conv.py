@@ -13,14 +13,22 @@ saturating per event is not the same as clipping once at the end, so the
 plain loops here replay events one at a time, vectorized over the batch
 of queues.  ``replay_events_`` is the one plain event loop: the plain
 versions of the CUDA kernels (``kernels/event_conv/ref.py``) run it too.
+
+The banked machinery (``bank_vm`` ... ``apply_events_banked_batched``)
+applies a whole interlace column at once: a cell receives at most one
+event per column, so one masked add per (column, bank) replaces the event
+walk, and the s = 0..n_banks-1 order keeps each cell's adds in queue
+order, per-event saturation included.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import torch
 
 from .aeq import EventQueue
 from .geometry import GEOM_3X3, ConvGeometry
-from .quantization import acc
+from .quantization import SAT_RANGE, acc
 
 
 def pad_vm(vm: torch.Tensor, geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
@@ -125,3 +133,184 @@ def apply_events_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
     n_steps = min(cap, -(-max_count // block) * block)
     replay_events_(vm, coords, valid, k_rot, slice(0, n_steps))
     return vm[..., 0] if squeeze else vm
+
+
+# ---------------------------------------------------------------------------
+# Memory-interlaced application (banked membrane tiles).
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _interlace_tables(kh: int = 3, kw: int = 3):
+    """Static (column, bank) routing of the interlaced conv update, as
+    tuples indexed [s][t] (n_banks x n_banks): PERM = flat tap index a*kw+b
+    that column-s events write into bank t; DI/DJ = macro-cell shift of
+    that write against the event's centre bank, in {-1, 0, +1} for every
+    odd window; COL_BANK[s] = padded-space bank holding column-s centres
+    (i+hh, j+hw)."""
+    hh, hw = kh // 2, kw // 2
+    nb = kh * kw
+    perm, di, dj, col_bank = [], [], [], []
+    for s in range(nb):
+        si, sj = divmod(s, kw)
+        col_bank.append(((si + hh) % kh) * kw + (sj + hw) % kw)
+        prow, drow, jrow = [], [], []
+        for t in range(nb):
+            ti, tj = divmod(t, kw)
+            a = (ti - si) % kh
+            b = (tj - sj) % kw
+            prow.append(a * kw + b)
+            drow.append((si + a) // kh - (si + hh) // kh)
+            jrow.append((sj + b) // kw - (sj + hw) // kw)
+        perm.append(tuple(prow))
+        di.append(tuple(drow))
+        dj.append(tuple(jrow))
+    return tuple(perm), tuple(di), tuple(dj), tuple(col_bank)
+
+
+def bank_vm(vm_padded: torch.Tensor,
+            geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """(..., Hp, Wp, C) halo-padded tile -> (..., n_banks, HB, WB, C) RAM
+    banks: bank t = kw*(r%kh) + (c%kw) of padded cell (r, c) at macro
+    address (r//kh, c//kw).  Hp/Wp are zero-padded up to window
+    multiples; ``unbank_vm`` drops those cells again."""
+    kh, kw = geometry.kh, geometry.kw
+    *lead, hp, wp, c = vm_padded.shape
+    hb, wb = -(-hp // kh), -(-wp // kw)
+    nl = len(lead)
+    v = vm_padded.new_zeros((*lead, kh * hb, kw * wb, c))
+    v[..., :hp, :wp, :] = vm_padded
+    v = v.reshape(*lead, hb, kh, wb, kw, c)
+    v = v.permute(*range(nl), nl + 1, nl + 3, nl, nl + 2, nl + 4)
+    return v.reshape(*lead, kh * kw, hb, wb, c)
+
+
+def unbank_vm(vm_banked: torch.Tensor, hp: int, wp: int,
+              geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """Inverse of :func:`bank_vm`: (..., n_banks, HB, WB, C) ->
+    (..., Hp, Wp, C), contiguous."""
+    kh, kw = geometry.kh, geometry.kw
+    *lead, _, hb, wb, c = vm_banked.shape
+    nl = len(lead)
+    v = vm_banked.reshape(*lead, kh, kw, hb, wb, c)
+    v = v.permute(*range(nl), nl + 2, nl, nl + 3, nl + 1, nl + 4)
+    v = v.reshape(*lead, kh * hb, kw * wb, c)
+    return v[..., :hp, :wp, :].contiguous()
+
+
+def shifted_bank_masks(masks: torch.Tensor,
+                       geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """Bank occupancy (..., n_banks, HB, WB) -> per-(column, bank) write
+    masks (..., n_banks cols, n_banks banks, HB, WB): entry [s, t, I, J]
+    is True iff bank t's cell (I, J) receives column s's tap — column s's
+    centre mask shifted by (DI, DJ)[s, t], as static slices of one
+    array padded by a macro cell per side."""
+    _, di_t, dj_t, col_bank = _interlace_tables(geometry.kh, geometry.kw)
+    nb = geometry.n_banks
+    hb, wb = masks.shape[-2:]
+    nl = masks.ndim - 3
+    mp = masks.new_zeros(masks.shape[:-2] + (hb + 2, wb + 2))
+    mp[..., 1:-1, 1:-1] = masks
+    per_col = []
+    for s in range(nb):
+        m = mp[..., col_bank[s], :, :]
+        per_bank = []
+        for t in range(nb):
+            r0, c0 = 1 - di_t[s][t], 1 - dj_t[s][t]
+            per_bank.append(m[..., r0:r0 + hb, c0:c0 + wb])
+        per_col.append(torch.stack(per_bank, dim=nl))
+    return torch.stack(per_col, dim=nl)
+
+
+def tap_matrix(kernel: torch.Tensor) -> torch.Tensor:
+    """(kh, kw, ...) unrotated kernel -> (n_banks cols, n_banks banks, ...)
+    taps: entry [s, t] is the (180-degree-rotated) tap that column-s
+    events add into bank t."""
+    geom = kernel_geometry(kernel, "tap_matrix")
+    perm, _, _, _ = _interlace_tables(geom.kh, geom.kw)
+    k_rot = rotate_kernel(kernel)
+    flat = k_rot.reshape((geom.n_banks,) + tuple(k_rot.shape[2:]))
+    return flat[torch.tensor(perm, device=kernel.device)]
+
+
+def _acc_masked(bank: torch.Tensor, tap: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """bank + tap*mask, saturating for int dtypes.  mask is 0/1, so a cell
+    gets exactly ``tap`` or nothing (only the sign of an untouched zero
+    may differ, which compares equal); clipping an untouched in-range
+    int cell is the identity, so per-event saturation is kept."""
+    m = mask[..., None]
+    sat = SAT_RANGE.get(bank.dtype)
+    if sat is None:
+        return bank + tap * m.to(bank.dtype)
+    wide = bank.to(torch.int32) + tap.to(torch.int32) * m.to(torch.int32)
+    return wide.clamp(*sat).to(bank.dtype)
+
+
+def apply_banked_columns(vm_banked: torch.Tensor, smasks: torch.Tensor,
+                         taps: torch.Tensor) -> torch.Tensor:
+    """Apply one queue's events to a banked tile, one column at a time.
+
+    vm_banked (..., n_banks, HB, WB, C) from :func:`bank_vm`; smasks
+    (..., n_banks cols, n_banks banks, HB, WB) from
+    :func:`shifted_bank_masks`; taps (n_banks, n_banks, C) from
+    :func:`tap_matrix` in vm's dtype.  Bank-major, columns s = 0.. in
+    order within each bank: equal to the event walk bit for bit.
+    """
+    nb = taps.shape[0]
+    banks = []
+    for t in range(nb):
+        bank = vm_banked[..., t, :, :, :]
+        for s in range(nb):
+            bank = _acc_masked(bank, taps[s, t], smasks[..., s, t, :, :])
+        banks.append(bank)
+    return torch.stack(banks, dim=-4)
+
+
+def apply_banked_columns_fused(vm_banked: torch.Tensor,
+                               padded_masks: torch.Tensor,
+                               taps: torch.Tensor,
+                               geometry: ConvGeometry = GEOM_3X3
+                               ) -> torch.Tensor:
+    """:func:`apply_banked_columns` reading the fused-handoff carrier:
+    padded_masks (..., n_banks, HB+2, WB+2) bool is the centre occupancy
+    with one macro cell of padding per side, and each (s, t) write mask is
+    its static slice ``[COL_BANK[s], 1-DI[s,t]:, 1-DJ[s,t]:]``."""
+    _, di_t, dj_t, col_bank = _interlace_tables(geometry.kh, geometry.kw)
+    nb = geometry.n_banks
+    hb, wb = vm_banked.shape[-3], vm_banked.shape[-2]
+    banks = []
+    for t in range(nb):
+        bank = vm_banked[..., t, :, :, :]
+        for s in range(nb):
+            r0, c0 = 1 - di_t[s][t], 1 - dj_t[s][t]
+            m = padded_masks[..., col_bank[s], r0:r0 + hb, c0:c0 + wb]
+            bank = _acc_masked(bank, taps[s, t], m)
+        banks.append(bank)
+    return torch.stack(banks, dim=-4)
+
+
+def apply_events_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
+                        kernel: torch.Tensor) -> torch.Tensor:
+    """Banked counterpart of :func:`apply_events` for one tile:
+    vm_padded (Hp, Wp[, C]); masks (n_banks, HB, WB) bank occupancy
+    (``aeq.build_bank_masks``); kernel (kh, kw[, C]) unrotated."""
+    kernel_geometry(kernel, "apply_events_banked")
+    squeeze = vm_padded.ndim == 2
+    vm = vm_padded[..., None] if squeeze else vm_padded
+    k = kernel[..., None] if squeeze else kernel
+    out = apply_events_banked_batched(vm[None], masks[None], k)[0]
+    return out[..., 0] if squeeze else out
+
+
+def apply_events_banked_batched(vm_padded: torch.Tensor, masks: torch.Tensor,
+                                kernel: torch.Tensor) -> torch.Tensor:
+    """Banked path over a stack of tiles: vm_padded (Q, Hp, Wp, C); masks
+    (Q, n_banks, HB, WB); kernel (kh, kw, C) shared.  Equal to the
+    per-queue event walk."""
+    geom = kernel_geometry(kernel, "apply_events_banked_batched")
+    hp, wp = vm_padded.shape[-3:-1]
+    return unbank_vm(
+        apply_banked_columns(bank_vm(vm_padded, geom),
+                             shifted_bank_masks(masks, geom),
+                             tap_matrix(kernel).to(vm_padded.dtype)),
+        hp, wp, geom)

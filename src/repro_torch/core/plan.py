@@ -37,15 +37,27 @@ _VM_DTYPES = {None: torch.float32, 8: torch.int8, 16: torch.int16}
 # Kernel variants a LayerPlan can pin (None = resolve from event_par).
 # "sequential" walks each queue one event at a time (the sequential CUDA
 # kernel); "interlaced-cuda" feeds segment-padded queues to the
-# interlaced CUDA kernel.  The kernels' wrappers run their plain versions
-# for CPU tensors, so the device picks kernel or plain path, not the plan.
-# "banked-jax" and "fused-handoff" are the JAX package's plain-jnp
-# variants: they can be pinned but raise at run time until they are
-# ported (NOT_PORTED names the ROADMAP item).
-KERNEL_VARIANTS = ("sequential", "banked-jax", "interlaced-cuda",
+# interlaced CUDA kernel; "banked-cuda" compacts dense frames into padded
+# bank masks (``aeq.build_bank_masks``) and "fused-handoff" takes the
+# fused-handoff carrier, which the producer layer emits from its
+# threshold kernel (or ``aeq.build_fused_handoff`` builds at the network
+# edge) — both feed the banked CUDA kernel.  A pin is the only way to the
+# last two.  The kernels' wrappers run their plain versions for CPU
+# tensors, so the device picks kernel or plain path, not the plan.
+KERNEL_VARIANTS = ("sequential", "banked-cuda", "interlaced-cuda",
                    "fused-handoff")
-NOT_PORTED = ("not ported yet: see ROADMAP.md Queue 1, item "
-              "'banked-jax / fused-handoff variants'")
+
+# What the port does not run yet, and where ROADMAP.md lists it.
+NOT_PORTED = {
+    "fc_capacity": "fc_capacity (the event-driven sparse head) is not "
+                   "ported yet: see ROADMAP.md Queue 1, 'fc_capacity sparse "
+                   "head'",
+    "stream": "streamed (StreamState) input is not ported yet: see "
+              "ROADMAP.md Queue 1, 'Streaming ingestion'",
+    "tune": "the measured tuner and plan cache are not ported yet "
+            "(ROADMAP.md Queue 1, 'Measured tuner and plan cache'); use "
+            "tune='analytic'",
+}
 
 
 def pad_capacity(capacity: int) -> int:
@@ -93,7 +105,8 @@ class LayerPlan:
         """Effective kernel variant: a pinned :attr:`variant` wins;
         otherwise ``event_par > 1`` selects the interlaced kernel (the JAX
         package's resolution under ``backend="pallas"``) and
-        ``event_par == 1`` the sequential unit."""
+        ``event_par == 1`` the sequential unit.  The banked and
+        fused-handoff variants are reached only by a pin."""
         if self.variant is not None:
             return self.variant
         return "interlaced-cuda" if self.event_par > 1 else "sequential"
@@ -181,6 +194,19 @@ class NetworkPlan:
                     f"{lp!r} geometry {lp.geometry.describe()} does not "
                     f"match cfg layer {idx} kernel {spec.kernel}x"
                     f"{spec.kernel}")
+            if lp.variant == "fused-handoff":
+                # the carrier's bank grid derives from (in_hw, geometry);
+                # the consumer's slices assume vm_tile covers that grid
+                h, w = lp.in_hw
+                hh, hw2 = lp.geometry.halo
+                want = (h + 2 * hh, w + 2 * hw2, lp.channel_block)
+                if tuple(lp.vm_tile) != want:
+                    raise ValueError(
+                        f"{lp!r} variant='fused-handoff' needs the "
+                        f"halo-padded vm_tile {want} matching in_hw="
+                        f"{lp.in_hw} under {lp.geometry.describe()}, got "
+                        f"{tuple(lp.vm_tile)}: the handoff bank grid and "
+                        f"the membrane banks would desynchronize")
             hw, c_in = conv_out_hw(hw, spec), spec.channels
         return self
 
@@ -276,10 +302,7 @@ def plan_network(
     a divisor of T.  Calibration from stats, streaming ingestion and the
     measured tuner are not ported yet."""
     if tune != "analytic":
-        raise NotImplementedError(
-            f"tune={tune!r}: the measured tuner and plan cache are not "
-            f"ported yet (ROADMAP.md Queue 1, 'Measured tuner and plan "
-            f"cache'); use tune='analytic'")
+        raise NotImplementedError(f"tune={tune!r}: {NOT_PORTED['tune']}")
     from .csnn import ConvSpec, conv_out_hw
     conv_specs = [(i, s) for i, s in enumerate(cfg.layers)
                   if isinstance(s, ConvSpec)]

@@ -2,38 +2,61 @@
 Sec. V-D, Algorithm 1; main-path port of ``repro.core.scheduler``).
 
 Per conv layer and time chunk: ONE batched compaction builds every
-(t, b, c_in) queue (``aeq.build_aeq_batched``, segment-padded when
-``event_par`` > 1); then for each output-channel block, each time step
-and each input channel, ONE conv-unit launch applies the B queues of that
-(t, c_in) to the block's B membrane tiles, and one threshold-unit launch
-per (block, t) adds the bias, fires against the m-TTFS latch and
-OR-pools (the JAX package's per-step ``threshold_unit`` plus its
-``_pool_all`` over the whole output, fused).  The membrane tiles are updated in place (the port's choice:
-the Pallas kernels aliased their input the same way).
+(t, b, c_in) event set; then, for each output-channel block and each time
+step, the conv unit applies the events of every input channel to the
+block's B membrane tiles, and one threshold-unit launch per (block, t)
+adds the bias, fires against the m-TTFS latch and OR-pools (the JAX
+package's per-step ``threshold_unit`` plus its ``_pool_all`` over the
+whole output, fused).  The membrane tiles are updated in place (the
+port's choice: the Pallas kernels aliased their input the same way).
 
 Variants (``LayerPlan.resolve_variant``):
 
-* ``"sequential"`` — ``event_conv_cuda_batched``;
-* ``"interlaced-cuda"`` — ``event_conv_cuda_interlaced_batched`` over
-  segment-padded queues;
-* ``"banked-jax"`` / ``"fused-handoff"`` — not ported yet; they raise.
+* ``"sequential"`` — queues (``aeq.build_aeq_batched``), one
+  ``event_conv_cuda_batched`` launch per (block, t, c_in);
+* ``"interlaced-cuda"`` — segment-padded queues, one
+  ``event_conv_cuda_interlaced_batched`` launch per (block, t, c_in);
+* ``"banked-cuda"`` — padded bank masks (``aeq.build_bank_masks`` plus a
+  zero macro cell per side), one ``event_conv_cuda_banked`` launch per
+  (block, t) over all input channels;
+* ``"fused-handoff"`` — the same kernel over the fused-handoff carrier.
+
+Fused spike emission.  The JAX package builds the carrier at the layer
+boundary with ``aeq.build_fused_handoff`` of the producer's dense
+output; its emit-mode threshold kernel computes the same carrier
+(tests/test_fused_handoff.py).  The port produces it there: when the
+next layer is pinned to ``"fused-handoff"``, ``snn_step_chunk`` hands
+this runner the consumer's ``(capacity, geometry)`` as ``emit``, every
+threshold launch is ``threshold_pool_cuda_emit`` writing its slab of the
+carrier, and the runner returns the carrier in place of the dense
+spikes.  At the network edge the fused layer builds its carrier from the
+dense input with ``aeq.build_fused_handoff``.
 
 The kernels' wrappers run their plain versions for CPU tensors, so the
 same code is the CPU reference path.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.kernels.event_conv.kernel import (
-    event_conv_cuda_batched, event_conv_cuda_interlaced_batched)
-from repro_torch.kernels.threshold_pool.kernel import \
-    threshold_pool_cuda_batched
+    event_conv_cuda_banked, event_conv_cuda_batched,
+    event_conv_cuda_interlaced_batched)
+from repro_torch.kernels.threshold_pool.kernel import (
+    threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 
-from .aeq import BatchedEventQueue, build_aeq_batched, segment_pad
+from .aeq import (BatchedEventQueue, FusedHandoff, build_aeq_batched,
+                  build_bank_masks, build_fused_handoff, check_handoff,
+                  handoff_shape, segment_pad)
+from .event_conv import tap_matrix
+from .geometry import ConvGeometry
 from .plan import NOT_PORTED, LayerPlan
+
+#: the consumer's (capacity, geometry) a producer emits its carrier for
+Emit = Optional[tuple[int, ConvGeometry]]
+BANKED = ("banked-cuda", "fused-handoff")
 
 
 class LayerStats(NamedTuple):
@@ -78,39 +101,68 @@ def _merge_blocks(arr: torch.Tensor) -> torch.Tensor:
 
 
 def run_conv_layer_batched_chunk(
-    spikes_in: torch.Tensor,
+    spikes_in: Union[torch.Tensor, FusedHandoff],
     kernels: torch.Tensor,
     bias: torch.Tensor,
     v_t,
     lp: LayerPlan,
     carry: ConvCarry,
-) -> tuple[torch.Tensor, ConvCarry, LayerStats]:
+    *,
+    emit: Emit = None,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
     """Step one conv layer through a chunk of time steps from ``carry``.
 
-    spikes_in: (B, t_chunk, H, W, C_in) bool dense frames.  Returns
-    (spikes_out (B, t_chunk, H', W', C_out) bool, new carry, chunk
-    LayerStats).  Chaining chunks equals one whole-T call.
+    spikes_in: (B, t_chunk, H, W, C_in) bool dense frames, or the
+    :class:`FusedHandoff` carrier a producer emitted for this layer (only
+    when it is pinned to ``"fused-handoff"``).  ``emit``: the next layer's
+    (capacity, geometry) when that layer is pinned to ``"fused-handoff"``.
+    Returns (spikes_out (B, t_chunk, H', W', C_out) bool — or, with
+    ``emit``, the carrier of those spikes — new carry, chunk LayerStats).
+    Chaining chunks equals one whole-T call.
     """
     variant = lp.resolve_variant()
-    if variant in ("banked-jax", "fused-handoff"):
-        raise NotImplementedError(f"variant {variant!r} is {NOT_PORTED}")
-    if not isinstance(spikes_in, torch.Tensor):
-        raise NotImplementedError(
-            "only dense spike frames are ported; fused-handoff carriers and "
-            "streamed input are ROADMAP.md Queue 1 items")
+    h, w = lp.in_hw
+    if isinstance(spikes_in, FusedHandoff) and variant != "fused-handoff":
+        raise ValueError(f"a FusedHandoff carrier feeds only a layer pinned "
+                         f"to 'fused-handoff'; {lp.name} resolves to "
+                         f"{variant!r}")
+    if variant == "fused-handoff":
+        if isinstance(spikes_in, FusedHandoff):
+            check_handoff(spikes_in, lp.c_in, (h, w), lp.geometry)
+            ho = spikes_in
+        else:  # the network edge: dense input frames
+            ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
+        t_steps, c_in, b_sz = ho.masks.shape[:3]
+        # the demand counts give the dense frames' zero share exactly
+        # (integer sums below 2**24 in float32)
+        total = ho.count.to(torch.float32).sum(dim=(0, 2))
+        sparsity = 1.0 - total / float(t_steps * h * w * c_in)
+        return _run_chunk_from_events(
+            ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in),
+            kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
     b_sz, t_steps, h, w, c_in = spikes_in.shape
     fmaps = spikes_in.permute(1, 0, 4, 2, 3)  # (t, B, C_in, H, W)
-    queues = build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry)
-    if lp.event_par > 1:
-        queues = segment_pad(queues, lp.event_par, lp.geometry)
+    if variant == "banked-cuda":
+        banked = build_bank_masks(fmaps, lp.capacity, lp.geometry)
+        # (t, B, C_in, nb, HB, WB) -> the carrier layout (t, C_in, B, nb,
+        # HB+2, WB+2): one zero macro cell per side
+        m = banked.masks.transpose(1, 2)
+        events = m.new_zeros(m.shape[:-2] + (m.shape[-2] + 2, m.shape[-1] + 2))
+        events[..., 1:-1, 1:-1] = m
+        counts = banked.count
+    else:
+        events = build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry)
+        if lp.event_par > 1:
+            events = segment_pad(events, lp.event_par, lp.geometry)
+        counts = events.count
     sparsity = 1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
     return _run_chunk_from_events(
-        queues, queues.count, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant)
+        events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
+        kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
 
 
 def _run_chunk_from_events(
-    queues: BatchedEventQueue,
+    events: Union[BatchedEventQueue, torch.Tensor],
     counts: torch.Tensor,
     sparsity: torch.Tensor,
     shape: tuple[int, int, int, int, int],
@@ -121,8 +173,11 @@ def _run_chunk_from_events(
     carry: ConvCarry,
     *,
     variant: str,
-) -> tuple[torch.Tensor, ConvCarry, LayerStats]:
-    """Shared chunk body: consume the pre-built (t, B, C_in) queues."""
+    emit: Emit,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
+    """Shared chunk body: consume the pre-built (t, B, C_in) event sets —
+    queues for the queue variants, the padded bank masks (t, C_in, B,
+    n_banks, HB+2, WB+2) for the banked ones."""
     b_sz, t_steps, h, w, c_in = shape
     c_out = kernels.shape[-1]
     cb = lp.channel_block
@@ -132,12 +187,19 @@ def _run_chunk_from_events(
     kh, kw = kernels.shape[:2]
     dev = carry.vm.device
 
-    # one contiguous (B, cap[, 2]) slab per (t, c_in) launch
-    coords = queues.coords.permute(0, 2, 1, 3, 4).contiguous()
-    valid = queues.valid.permute(0, 2, 1, 3).contiguous()
-    # weights cast like JAX's astype(vm.dtype) (truncation toward zero)
-    kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
-          .to(vm_dtype).contiguous())         # (n_blocks, C_in, kh, kw, Cb)
+    if variant in BANKED:
+        # (nb, nb, C_in, C_out) tap routing -> (n_blocks, C_in, nb, nb, Cb);
+        # weights cast like JAX's astype(vm.dtype) (truncation toward zero)
+        nb = lp.geometry.n_banks
+        taps = (tap_matrix(kernels).to(vm_dtype)
+                .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
+                .contiguous())
+    else:
+        # one contiguous (B, cap[, 2]) slab per (t, c_in) launch
+        coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
+        valid = events.valid.permute(0, 2, 1, 3).contiguous()
+        kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
+              .permute(3, 2, 0, 1, 4).to(vm_dtype).contiguous())
     bb = bias.reshape(n_blocks, cb).to(vm_dtype)
     vm_b = _split_blocks(carry.vm.to(vm_dtype), n_blocks, cb)
     fired0 = _split_blocks(carry.fired, n_blocks, cb)
@@ -148,24 +210,50 @@ def _run_chunk_from_events(
         oh, ow = -(-h // lp.pool), -(-w // lp.pool)
         pooled = torch.empty((n_blocks, t_steps, b_sz, oh, ow, cb),
                              dtype=torch.bool, device=dev)
+    if emit is not None:
+        cap_e, geom_e = emit
+        # carrier of the (post-pool) output; each launch writes the
+        # contiguous slab [t, block's channels]
+        out_masks = torch.empty(
+            handoff_shape(t_steps, c_out, b_sz, lp.out_hw, geom_e),
+            dtype=torch.bool, device=dev)
+        out_count = torch.empty((t_steps, c_out, b_sz), dtype=torch.int32,
+                                device=dev)
+        out_seg = torch.empty((t_steps, c_out, b_sz, geom_e.n_banks),
+                              dtype=torch.int32, device=dev)
 
     for blk in range(n_blocks):
         vm = vm_b[blk]
         fired = fired0[blk]
+        c0, c1 = blk * cb, (blk + 1) * cb
         for t in range(t_steps):
-            for ci in range(c_in):
-                k_ci = kb[blk, ci]
-                if variant == "interlaced-cuda":
-                    event_conv_cuda_interlaced_batched(
-                        vm, coords[t, ci], valid[t, ci], k_ci,
-                        event_par=lp.event_par, out=vm)
-                else:
-                    event_conv_cuda_batched(vm, coords[t, ci], valid[t, ci],
-                                            k_ci, out=vm)
-            threshold_pool_cuda_batched(
-                vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
-                halo=(hh, hw), fired_out=spikes[blk, t],
-                pooled_out=None if pooled is None else pooled[blk, t])
+            if variant in BANKED:
+                event_conv_cuda_banked(vm, events[t], taps[blk],
+                                       geometry=lp.geometry, out=vm)
+            else:
+                for ci in range(c_in):
+                    if variant == "interlaced-cuda":
+                        event_conv_cuda_interlaced_batched(
+                            vm, coords[t, ci], valid[t, ci], kb[blk, ci],
+                            event_par=lp.event_par, out=vm)
+                    else:
+                        event_conv_cuda_batched(vm, coords[t, ci],
+                                                valid[t, ci], kb[blk, ci],
+                                                out=vm)
+            pooled_t = None if pooled is None else pooled[blk, t]
+            if emit is None:
+                threshold_pool_cuda_batched(
+                    vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
+                    halo=(hh, hw), fired_out=spikes[blk, t],
+                    pooled_out=pooled_t)
+            else:
+                threshold_pool_cuda_emit(
+                    vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
+                    halo=(hh, hw), emit_capacity=cap_e, emit_geometry=geom_e,
+                    fired_out=spikes[blk, t], pooled_out=pooled_t,
+                    masks_out=out_masks[t, c0:c1],
+                    count_out=out_count[t, c0:c1],
+                    seg_counts_out=out_seg[t, c0:c1])
             fired = spikes[blk, t]
 
     new_carry = ConvCarry(vm=_merge_blocks(vm_b),
@@ -183,6 +271,10 @@ def _run_chunk_from_events(
         event_block=lp.block_e,
         event_par=lp.event_par,
     )
+    if emit is not None:
+        return (FusedHandoff(masks=out_masks,
+                             count=out_count.transpose(1, 2).contiguous()),
+                new_carry, stats)
     if pooled is not None:
         return merge(pooled), new_carry, stats
     return spikes_out, new_carry, stats
@@ -194,9 +286,7 @@ def run_fc_head_batched(spikes_in: torch.Tensor, weights: torch.Tensor,
     """Classification unit over a batch: (B, T, ...) -> (B, n_classes).
     Integrate-only: drive @ W + T * b (:func:`head_product`)."""
     if capacity is not None:
-        raise NotImplementedError(
-            "fc_capacity (the event-driven sparse head) is not ported yet: "
-            "see ROADMAP.md Queue 1, 'fc_capacity sparse head'")
+        raise NotImplementedError(NOT_PORTED["fc_capacity"])
     b_sz, t_steps = spikes_in.shape[:2]
     drive = spikes_in.reshape(b_sz, t_steps, -1).to(weights.dtype).sum(1)
     return head_product(drive, weights) + t_steps * bias

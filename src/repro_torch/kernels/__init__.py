@@ -1,10 +1,21 @@
 """Hopper kernels of the port and their wrappers.
 
-* ``event_conv`` — the batched sequential and interlaced conv units
+* ``event_conv`` — the batched conv units: sequential and interlaced
   (``csrc/event_conv.cu``; replace ``event_conv_pallas_batched`` and
-  ``event_conv_pallas_interlaced_batched``);
+  ``event_conv_pallas_interlaced_batched``) and banked
+  (``csrc/event_conv_banked.cu``; the counterpart of the jnp
+  ``apply_banked_columns_fused``, the conv unit of the ``banked-cuda`` and
+  ``fused-handoff`` variants, one launch per (block, t) over all input
+  channels);
 * ``threshold_pool`` — the batched threshold unit
-  (``csrc/threshold_pool.cu``; replaces ``threshold_pool_pallas``);
+  (``csrc/threshold_pool.cu``; replaces ``threshold_pool_pallas``): the
+  base mode, and the emit mode, which also writes the next layer's
+  fused-handoff carrier (``emit_capacity``);
 * ``runtime`` — the CUDA/CPU switch, the nvcc build and the launch
   counters.
+
+Each wrapper runs its plain version (``ref.py``) for CPU tensors: the CPU
+tests (``tests/test_torch_kernels.py``, ``tests/test_torch_fused.py``)
+hold those against the JAX package, and ``chip_smoke.py`` and
+``tests/test_torch_gpu.py`` hold the kernels against them on a card.
 """

@@ -1,6 +1,9 @@
-"""Wrappers of the two batched event-conv CUDA kernels
-(``kernels/csrc/event_conv.cu``; they replace ``event_conv_pallas_batched``
-and ``event_conv_pallas_interlaced_batched``).
+"""Wrappers of the batched event-conv CUDA kernels:
+``kernels/csrc/event_conv.cu`` (they replace ``event_conv_pallas_batched``
+and ``event_conv_pallas_interlaced_batched``) and
+``kernels/csrc/event_conv_banked.cu`` (the counterpart of the jnp
+``apply_banked_columns_fused``, the conv unit of the banked and
+fused-handoff variants).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  It checks device, dtype, shape and
@@ -17,9 +20,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
 
-from .ref import event_conv_ref_batched, event_conv_ref_interlaced_batched
+from .ref import (event_conv_ref_banked, event_conv_ref_batched,
+                  event_conv_ref_interlaced_batched)
 
 #: shared memory one CTA may use on Hopper (227 KB), less a margin for
 #: the kernel's static shared variables
@@ -39,6 +44,15 @@ def _lib():
         lib.event_conv_interlaced_batched.restype = _I
         lib.event_conv_smem_bytes.argtypes = [_I] * 8
         lib.event_conv_smem_bytes.restype = ctypes.c_size_t
+        lib._typed = True
+    return lib
+
+
+def _banked_lib():
+    lib = runtime.load("event_conv_banked")
+    if not getattr(lib, "_typed", False):
+        lib.event_conv_banked.argtypes = [_P] * 3 + [_I] * 10 + [_P]
+        lib.event_conv_banked.restype = _I
         lib._typed = True
     return lib
 
@@ -163,3 +177,57 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
         out = torch.empty_like(vm_padded)
     return _launch("event_conv_interlaced_batched", vm_padded, coords, valid,
                    kernel, out, event_par)
+
+
+def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
+                           taps: torch.Tensor, *, geometry: ConvGeometry,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Apply every input channel's events, given as padded bank occupancy,
+    to Q halo-padded tiles in one launch.
+
+    vm_padded (Q, Hp, Wp, C) float32/int16/int8; masks (C_in, Q, n_banks,
+    HB+2, WB+2) bool with HB, WB = ceil(Hp/kh), ceil(Wp/kw) — one time
+    step of a ``FusedHandoff`` carrier; taps (C_in, n_banks, n_banks, C)
+    in vm's dtype (``event_conv.tap_matrix`` per input channel).  Returns
+    the updated tiles (``out=vm_padded`` updates in place).
+    """
+    if vm_padded.ndim != 4 or vm_padded.dtype not in runtime.DTYPE_CODES:
+        raise ValueError(f"vm tiles must be (Q, Hp, Wp, C) float32/int16/"
+                         f"int8, got {tuple(vm_padded.shape)} {vm_padded.dtype}")
+    q, hp, wp, c = vm_padded.shape
+    kh, kw = geometry.window
+    nb = geometry.n_banks
+    c_in = masks.shape[0] if masks.ndim else 0
+    want = (c_in, q, nb, -(-hp // kh) + 2, -(-wp // kw) + 2)
+    if tuple(masks.shape) != want or masks.dtype != torch.bool:
+        raise ValueError(f"masks must be {want} bool for {q} tiles of "
+                         f"{hp}x{wp} under the {kh}x{kw} geometry, got "
+                         f"{tuple(masks.shape)} {masks.dtype}")
+    if tuple(taps.shape) != (c_in, nb, nb, c) or taps.dtype != vm_padded.dtype:
+        raise ValueError(f"taps must be ({c_in}, {nb}, {nb}, {c}) "
+                         f"{vm_padded.dtype}, got {tuple(taps.shape)} "
+                         f"{taps.dtype}")
+    if out is not None and (out.shape != vm_padded.shape
+                            or out.dtype != vm_padded.dtype
+                            or out.device != vm_padded.device):
+        raise ValueError("out must match vm in shape, dtype and device")
+    if not runtime.use_kernel(vm_padded, masks, taps):
+        res = event_conv_ref_banked(vm_padded, masks, taps, geometry)
+        return res if out is None else out.copy_(res)
+    for name, t in (("vm", vm_padded), ("masks", masks), ("taps", taps),
+                    ("out", out)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if out is None:
+        out = vm_padded.clone()
+    elif out.data_ptr() != vm_padded.data_ptr():
+        out.copy_(vm_padded)
+    lib = _banked_lib()
+    status = lib.event_conv_banked(
+        out.data_ptr(), masks.data_ptr(), taps.data_ptr(), q, hp, wp, c,
+        c_in, kh, kw, want[3], want[4], runtime.DTYPE_CODES[vm_padded.dtype],
+        runtime.stream_ptr(vm_padded))
+    runtime.LAUNCHES["event_conv_banked"] += 1
+    runtime.check(lib, status, "event_conv_banked")
+    return out

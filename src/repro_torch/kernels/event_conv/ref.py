@@ -1,18 +1,22 @@
-"""Plain PyTorch versions of the two batched event-conv kernels.
+"""Plain PyTorch versions of the batched event-conv kernels.
 
 Semantics: for every valid event (i, j) of a queue, add the
 180-degree-rotated (kh, kw, C) kernel into that queue's halo-padded tile
 at [i:i+kh, j:j+kw, :] (the halo puts the event at the window centre);
-int8/int16 tiles saturate after every event.  These are what the
-wrappers in ``kernel.py`` run for CPU tensors, and what ``chip_smoke.py``
-holds the CUDA kernels against on the card.
+int8/int16 tiles saturate after every event.  The banked kernel takes the
+events as padded bank occupancy (the fused-handoff carrier) instead of
+queues.  These are what the wrappers in ``kernel.py`` run for CPU
+tensors, and what ``chip_smoke.py`` holds the CUDA kernels against on the
+card.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.aeq import column_index
-from repro_torch.core.event_conv import replay_events_, rotate_kernel
+from repro_torch.core.event_conv import (apply_banked_columns_fused, bank_vm,
+                                         replay_events_, rotate_kernel,
+                                         unbank_vm)
 from repro_torch.core.geometry import ConvGeometry
 
 
@@ -75,3 +79,18 @@ def event_conv_ref_interlaced_batched(vm_padded: torch.Tensor,
     geom = ConvGeometry.from_kernel_shape(kernel.shape)
     keep = interlaced_keep(coords, valid, event_par, geom)
     return event_conv_ref_batched(vm_padded, coords, keep, kernel)
+
+
+def event_conv_ref_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
+                          taps: torch.Tensor, geometry: ConvGeometry
+                          ) -> torch.Tensor:
+    """Oracle of ``event_conv_cuda_banked``: ``bank_vm``, then
+    ``apply_banked_columns_fused`` once per input channel, then
+    ``unbank_vm``.  vm (Q, Hp, Wp, C); masks (C_in, Q, n_banks, HBp+2,
+    WBp+2) bool; taps (C_in, n_banks, n_banks, C) in vm's dtype.  Returns
+    a new tensor."""
+    hp, wp = vm_padded.shape[1:3]
+    vb = bank_vm(vm_padded, geometry)
+    for ci in range(masks.shape[0]):
+        vb = apply_banked_columns_fused(vb, masks[ci], taps[ci], geometry)
+    return unbank_vm(vb, hp, wp, geometry)

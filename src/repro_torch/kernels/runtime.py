@@ -33,11 +33,12 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("event_conv", "threshold_pool")
+SOURCES = ("event_conv", "event_conv_banked", "threshold_pool")
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"event_conv_seq": 0, "event_conv_interlaced": 0,
-            "threshold_pool": 0}
+            "event_conv_banked": 0, "threshold_pool": 0,
+            "threshold_pool_emit": 0}
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}

@@ -8,13 +8,17 @@ import pytest
 import torch
 
 from repro_torch.core import aeq as taeq
+from repro_torch.core.event_conv import tap_matrix
+from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
 from repro_torch.kernels.event_conv.kernel import (
-    event_conv_cuda_batched, event_conv_cuda_interlaced_batched)
+    event_conv_cuda_banked, event_conv_cuda_batched,
+    event_conv_cuda_interlaced_batched)
 from repro_torch.kernels.event_conv.ref import (
-    event_conv_ref_batched, event_conv_ref_interlaced_batched)
-from repro_torch.kernels.threshold_pool.kernel import \
-    threshold_pool_cuda_batched
+    event_conv_ref_banked, event_conv_ref_batched,
+    event_conv_ref_interlaced_batched)
+from repro_torch.kernels.threshold_pool.kernel import (
+    threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
 
 
@@ -62,4 +66,72 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     event_conv_cuda_batched(vm, q.coords, q.valid, kern, out=vm)
     assert runtime.LAUNCHES == {"event_conv_seq": 1,
                                 "event_conv_interlaced": 0,
-                                "threshold_pool": 0}
+                                "event_conv_banked": 0,
+                                "threshold_pool": 0,
+                                "threshold_pool_emit": 0}
+    # the banked conv and the emit kernel count only their own launches
+    ho = taeq.build_fused_handoff(torch.ones((2, 1, 8, 8, 3), dtype=torch.bool,
+                                             device=cuda), 64)
+    taps = tap_matrix(torch.ones((3, 3, 3, 4), device=cuda)).permute(
+        2, 0, 1, 3).contiguous()
+    event_conv_ref_banked(vm, ho.masks[0], taps, ConvGeometry())
+    event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=ConvGeometry(),
+                           out=vm)
+    fired = torch.zeros((2, 8, 8, 4), dtype=torch.bool, device=cuda)
+    threshold_pool_tile_ref(vm.clone(), kern[0, 0], fired, v_t=1.0, pool=None,
+                            halo=(1, 1), emit_capacity=16)
+    threshold_pool_cuda_emit(vm, kern[0, 0], fired, v_t=1.0, pool=None,
+                             halo=(1, 1), emit_capacity=16)
+    assert runtime.LAUNCHES == {"event_conv_seq": 1,
+                                "event_conv_interlaced": 0,
+                                "event_conv_banked": 1,
+                                "threshold_pool": 0,
+                                "threshold_pool_emit": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_banked_and_emit_kernels_equal_plain_versions(cuda, dtype, k):
+    """event_conv_banked over a truncating carrier (32 input channels,
+    int rails reached) and threshold_pool_emit at the FULL conv0 -> conv1
+    shapes, pool None/3, capacities 16 and 256, into reused buffers."""
+    g = torch.Generator().manual_seed(k)
+    geom = ConvGeometry(k, k)
+    hh = k // 2
+    big = {torch.float32: 1.0, torch.int16: 9000.0, torch.int8: 40.0}[dtype]
+    vm = (torch.randn((8, 28 + 2 * hh, 28 + 2 * hh, 8), generator=g)
+          * big).to(dtype).to(cuda)
+    spikes = (torch.rand((8, 1, 28, 28, 32), generator=g) < 0.5).to(cuda)
+    ho = taeq.build_fused_handoff(spikes, 256, geom)
+    kern = (torch.randn((k, k, 32, 8), generator=g) * big).to(dtype).to(cuda)
+    taps = tap_matrix(kern).permute(2, 0, 1, 3).contiguous()
+    got = event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom)
+    assert torch.equal(got, event_conv_ref_banked(vm, ho.masks[0], taps,
+                                                  geom))
+    fired = (torch.rand((8, 28, 28, 8), generator=g) < 0.1).to(cuda)
+    bias = vm[0, 0, 0].clone()
+    v_t = 0.5 if dtype == torch.float32 else 20
+    for pool in (None, 3):
+        for cap in (16, 256):
+            a, b = vm.clone(), vm.clone()
+            ka = threshold_pool_cuda_emit(a, bias, fired, v_t=v_t, pool=pool,
+                                          halo=(1, 1), emit_capacity=cap,
+                                          emit_geometry=geom)
+            # a second launch into the same buffers, filled with stale bits
+            for x in ka:
+                if x is not None:
+                    x.fill_(1)
+            a2 = vm.clone()
+            ka2 = threshold_pool_cuda_emit(
+                a2, bias, fired, v_t=v_t, pool=pool, halo=(1, 1),
+                emit_capacity=cap, emit_geometry=geom, fired_out=ka[0],
+                pooled_out=ka[1], masks_out=ka[2], count_out=ka[3],
+                seg_counts_out=ka[4])
+            kb = threshold_pool_tile_ref(b, bias, fired, v_t=v_t, pool=pool,
+                                         halo=(1, 1), emit_capacity=cap,
+                                         emit_geometry=geom)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b) and torch.equal(a2, b)
+            for x, y in zip(ka2, kb):
+                assert (x is None and y is None) or torch.equal(x, y)

@@ -20,6 +20,9 @@ from repro_torch.core import plan as tplan
 from repro_torch.kernels.event_conv import ops as tops
 
 FIELDS = [f.name for f in dataclasses.fields(tplan.LayerPlan)]
+# JAX variant name -> the port's (the kernels run in CUDA, not Pallas/jnp)
+JAX_VARIANT_NAMES = {"interlaced-pallas": "interlaced-cuda",
+                     "banked-jax": "banked-cuda"}
 CONFIGS = [(jpaper.FULL, tpaper.FULL), (jpaper.SMOKE, tpaper.SMOKE),
            (jwide.FULL, twide.FULL), (jwide.SMOKE, twide.SMOKE)]
 
@@ -31,8 +34,8 @@ def _same_plan(jp, tp):
             jv, tv = getattr(jl, f), getattr(tl, f)
             if f == "geometry":
                 jv, tv = (jv.kh, jv.kw, jv.stride), (tv.kh, tv.kw, tv.stride)
-            if f == "variant" and jv == "interlaced-pallas":
-                jv = "interlaced-cuda"
+            if f == "variant":
+                jv = JAX_VARIANT_NAMES.get(jv, jv)
             assert jv == tv, (jl.name, f, jv, tv)
     for f in ("t_steps", "t_chunk", "fc_capacity", "batch_tile"):
         assert getattr(jp, f) == getattr(tp, f), f
@@ -108,10 +111,26 @@ def test_resolve_variant_and_unported_paths():
     tp = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4])
     assert [lp.resolve_variant() for lp in tp.layers] == [
         "sequential", "interlaced-cuda"]
-    pinned = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4],
-                                variant="banked-jax")
-    assert [lp.resolve_variant() for lp in pinned.layers] == [
-        "banked-jax", "banked-jax"]
+    for jv, tv in (("banked-jax", "banked-cuda"),
+                   ("fused-handoff", "fused-handoff")):
+        pinned = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4],
+                                    variant=tv)
+        assert [lp.resolve_variant() for lp in pinned.layers] == [tv, tv]
+        _same_plan(jplan.plan_network(jpaper.SMOKE, event_par=[1, 4],
+                                      variant=jv), pinned)
+    # never reached without a pin
+    for ep in (1, 4, None):
+        for lp in tplan.plan_network(tpaper.FULL, event_par=ep).layers:
+            assert lp.resolve_variant() not in ("banked-cuda",
+                                                "fused-handoff")
+    with pytest.raises(ValueError, match="must be one of"):
+        tplan.plan_network(tpaper.SMOKE, variant="banked-jax")
+    fused = tplan.plan_network(tpaper.SMOKE, variant="fused-handoff")
+    assert fused.validate(tpaper.SMOKE) is fused
+    bad = dataclasses.replace(fused.layers[1], vm_tile=(5, 5, 8))
+    with pytest.raises(ValueError, match="halo-padded vm_tile"):
+        dataclasses.replace(fused, layers=(fused.layers[0], bad)).validate(
+            tpaper.SMOKE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tplan.plan_network(tpaper.SMOKE, tune="measured")
     with pytest.raises(ValueError, match="requires event_par > 1"):

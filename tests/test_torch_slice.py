@@ -105,15 +105,15 @@ def test_snn_apply_batched_matches_jax_pallas(cfgs, event_par, sat_bits):
         np.testing.assert_array_equal(np.asarray(jstate.fc_drive),
                                       state.fc_drive.numpy())
     if event_par > 1:
-        # the sequential unit over the same segment-padded queues agrees;
-        # the JAX package's banked path is not ported yet
-        seq_logits = tc.snn_apply_batched(
-            params, tspikes, tcfg, tplan(tcfg, variant="sequential", **kw),
-            collect_stats=False)
-        assert torch.equal(seq_logits, logits)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.snn_apply_batched(params, tspikes, tcfg,
-                                 tplan(tcfg, variant="banked-jax", **kw))
+        # the sequential unit over the same segment-padded queues and the
+        # banked unit over the same events agree
+        for variant in ("sequential", "banked-cuda"):
+            other = tc.snn_apply_batched(
+                params, tspikes, tcfg, tplan(tcfg, variant=variant, **kw),
+                collect_stats=False)
+            assert torch.equal(other, logits)
+        with pytest.raises(ValueError, match="must be one of"):
+            tplan(tcfg, variant="banked-jax", **kw)
 
 
 def test_csnn_module_forward_and_keys():
@@ -143,12 +143,21 @@ def test_init_params_shapes_match_jax_and_seed():
 
 
 def test_unported_options_raise():
+    """The pinned fused/banked variants run (and equal the default plan);
+    fc_capacity, StreamState input and the measured tuner still raise."""
     cfg = tpaper.SMOKE
     params = tc.init_params(cfg, device="cpu")
-    spikes = torch.zeros((1, 4, 12, 12, 1), dtype=torch.bool)
+    spikes = torch.rand((1, 4, 12, 12, 1),
+                        generator=torch.Generator().manual_seed(0)) < 0.5
+    want = tc.snn_apply_batched(params, spikes, cfg, tplan(cfg),
+                                collect_stats=False)
+    for variant in ("fused-handoff", "banked-cuda"):
+        got = tc.snn_apply_batched(params, spikes, cfg,
+                                   tplan(cfg, variant=variant),
+                                   collect_stats=False)
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.snn_apply_batched(params, spikes, cfg,
-                             tplan(cfg, variant="fused-handoff"))
+        tplan(cfg, tune="measured")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.snn_apply_batched(params, spikes, cfg, tplan(cfg, fc_capacity=8))
     state = tc.init_state(params, cfg, tplan(cfg), 1)
