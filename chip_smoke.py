@@ -14,7 +14,10 @@ Phases (any failure exits non-zero before the result line):
    coordinates in an interlaced group; the emit-mode threshold kernel at
    FULL tiles with pool None/3 and capacities 16, 256 and 784, relaunched
    into buffers filled with stale bits; the banked conv over truncating
-   carriers of 32 input channels;
+   carriers of 32 input channels; the single-queue conv units at the FULL
+   single-sample tiles (k in {1, 3, 5}, f32/i16/i8, truncated,
+   segment-padded and unpadded queues, repeated coordinates, a 115 KB
+   tile over several CTAs, in place);
 4. the main paths: ``snn_apply_batched``'s steps (``init_state``,
    ``snn_step_chunk``, ``snn_readout``) on ``csnn_paper.FULL`` with B=8
    under the serve plan (interlaced), with ``event_par=1``, with every
@@ -23,17 +26,25 @@ Phases (any failure exits non-zero before the result line):
    state exact; logits within tolerance; argmax equal); the fused and
    banked runs held against the serve plan's card run, and the fused run
    repeated; then ``csnn_wide.FULL`` under the serve plan and fused
-   (a 5x5 layer at the network edge), held the same way;
+   (a 5x5 layer at the network edge), held the same way; the sparse FC
+   head (``fc_capacity``) at a calibrated and a truncating queue, held
+   against the CPU plain path; then ``snn_apply`` (one sample) on 8
+   ``synth_digits`` images under the same four plans, each held against
+   the CPU plain path and the card's ``snn_apply_batched`` on the same
+   images, and at a covering capacity against ``snn_apply_dense``
+   (argmax);
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch every
    kernel of its path (``PATH_KERNELS``) and no other;
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
-   --requests 8`` and print its lines;
+   --requests 8`` and ``python -m repro_torch.launch.quickstart`` and
+   print their lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick; then end-to-end
    samples/s of every path and a ``torch.profiler`` breakdown of one
-   forward of the serve, event_par=1 and fused plans.
+   forward of the serve, event_par=1 and fused plans and of one
+   single-sample forward.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -241,6 +252,7 @@ def check_kernels(dev) -> dict:
                 if pool is not None:
                     same(f"threshold_pool pooled {tag}", pk, pr)
     check_banked_and_emit(g, dev, same)
+    check_single(g, dev, same)
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
@@ -305,6 +317,68 @@ def check_banked_and_emit(g, dev, same) -> None:
                  event_conv_ref_banked(vm, ho.masks[0], taps, geom))
 
 
+def check_single(g, dev, same) -> None:
+    """Phase 3, slice 3: the single-queue conv units (a grid over channel
+    slices) at the FULL single-sample tiles — conv0/conv1 30x30x8 with
+    256 slots (320 segment-padded at event_par 8), conv2 12x12x5 with 100
+    (128 at event_par 4) — for k in {1, 3, 5} and f32/i16/i8; truncated,
+    segment-padded and unpadded (mixed-group) queues; repeated coordinates
+    in a group; a 30x30x32 f32 tile (115 KB) over several CTAs; in place."""
+    import torch
+
+    from repro_torch.core.aeq import build_aeq, segment_pad
+    from repro_torch.core.geometry import ConvGeometry
+    from repro_torch.kernels.event_conv.kernel import (
+        event_conv_cuda, event_conv_cuda_interlaced)
+    from repro_torch.kernels.event_conv.ref import (event_conv_ref,
+                                                    event_conv_ref_interlaced)
+
+    # (k, map side, channels, capacity, event_par, density)
+    cases = [(3, 28, 8, 256, 8, 0.6), (3, 10, 5, 100, 4, 0.9),
+             (1, 28, 8, 256, 8, 0.6), (5, 28, 8, 256, 8, 0.6),
+             (3, 28, 32, 256, 8, 0.3), (3, 28, 8, 256, 8, 0.05)]
+    for k, hw, c, cap, ep, density in cases:
+        geom, hh = ConvGeometry(k, k), k // 2
+        for dtype in (torch.float32, torch.int16, torch.int8):
+            if c == 32 and dtype != torch.float32:
+                continue
+            kern = rand_kernel(g, (k, k, c), dtype, dev)
+            vm = rand_tile(g, (hw + 2 * hh, hw + 2 * hh, c), dtype, dev)
+            fm = (torch.rand((hw, hw), generator=g) < density).to(dev)
+            q = build_aeq(fm, cap, geometry=geom)
+            qp = segment_pad(q, ep, geom)
+            tag = f"k={k} {hw}x{hw}x{c} {dtype} density={density}"
+            same(f"event_conv_seq_single {tag}",
+                 event_conv_cuda(vm, q.coords, q.valid, kern),
+                 event_conv_ref(vm, q.coords, q.valid, kern))
+            for name, qq in ((f"ep={ep}", qp), ("mixed-groups", q)):
+                same(f"event_conv_interlaced_single {name} {tag}",
+                     event_conv_cuda_interlaced(vm, qq.coords, qq.valid,
+                                                kern, event_par=ep),
+                     event_conv_ref_interlaced(vm, qq.coords, qq.valid, kern,
+                                               event_par=ep))
+            # in place, as the scheduler launches them
+            want = event_conv_ref_interlaced(vm, qp.coords, qp.valid, kern,
+                                             event_par=ep)
+            got = vm.clone()
+            event_conv_cuda_interlaced(got, qp.coords, qp.valid, kern,
+                                       event_par=ep, out=got)
+            same(f"event_conv_interlaced_single in place {tag}", got, want)
+            want = event_conv_ref(vm, q.coords, q.valid, kern)
+            got = vm.clone()
+            event_conv_cuda(got, q.coords, q.valid, kern, out=got)
+            same(f"event_conv_seq_single in place {tag}", got, want)
+    # repeated coordinates inside column-homogeneous groups
+    coords = torch.tensor([[4, 4], [4, 4], [7, 4], [4, 4]] * 4,
+                          dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 1, 1, 0] * 4, dtype=torch.bool, device=dev)
+    vm = rand_tile(g, (30, 30, 8), torch.float32, dev)
+    kern = rand_kernel(g, (3, 3, 8), torch.float32, dev)
+    same("event_conv_interlaced_single repeated coords",
+         event_conv_cuda_interlaced(vm, coords, valid, kern, event_par=4),
+         event_conv_ref_interlaced(vm, coords, valid, kern, event_par=4))
+
+
 # --------------------------------------------------------------- phase 4
 def forward(params, spikes, cfg, plan):
     """``snn_apply_batched``'s steps in one chunk, keeping the state."""
@@ -361,28 +435,58 @@ def hold_same(name, got, want) -> None:
 
 # The kernels each main-path run launches, and no other: the JSON line
 # reports each kernel's count from the first run listed here that
-# launches it.
+# launches it.  The batched runs are one snn_apply_batched forward (B=8);
+# the single runs one snn_apply forward (one sample) under the same plan.
 PATH_KERNELS = {
     "serve plan (interlaced)": ("event_conv_interlaced", "threshold_pool"),
     "event_par=1 (sequential)": ("event_conv_seq", "threshold_pool"),
     "fused-handoff": ("event_conv_banked", "threshold_pool_emit",
                       "threshold_pool"),
     "banked-cuda": ("event_conv_banked", "threshold_pool"),
+    "single, serve plan (interlaced)": ("event_conv_interlaced_single",
+                                        "threshold_pool"),
+    "single, event_par=1 (sequential)": ("event_conv_seq_single",
+                                         "threshold_pool"),
+    "single, fused-handoff": ("event_conv_banked", "threshold_pool"),
+    "single, banked-cuda": ("event_conv_banked", "threshold_pool"),
 }
+BATCHED_PATHS = tuple(p for p in PATH_KERNELS if not p.startswith("single"))
+
+
+def counted(path, fn, launches):
+    """Run ``fn`` from launch counters set to 0 and return its result;
+    fail unless it launched every kernel of ``path`` and no other."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    runtime.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(runtime.LAUNCHES)
+    print(f"launches per forward, {path}: {counts}")
+    kernels = PATH_KERNELS[path]
+    for k, n in counts.items():
+        if k in kernels and n <= 0:
+            fail(f"kernel {k} was never launched on the {path} path")
+        if k not in kernels and n:
+            fail(f"kernel {k} was launched {n}x on the {path} path")
+        if k in kernels:
+            launches.setdefault(k, n)
+    return out
+
+
+def to_cpu(p):
+    return {k: {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
 
 
 def main_path(dev, cfg, wcfg):
-    """Phases 4-5: the main paths on the card, each held against the CPU
-    plain path.  Returns (launch counts per kernel, params, images, plans
-    by path name)."""
+    """Phases 4-5: the batched main paths on the card, each held against
+    the CPU plain path.  Returns (launch counts per kernel, params,
+    images, plans by path name, CPU forwards by path name)."""
     import torch
 
     from repro_torch.core.csnn import ConvSpec, encode_input, init_params
     from repro_torch.core.plan import plan_network
-    from repro_torch.kernels import runtime
-
-    def to_cpu(p):
-        return {k: {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
 
     params = init_params(cfg, seed=0, device=dev)
     h, w = cfg.input_hw
@@ -391,29 +495,19 @@ def main_path(dev, cfg, wcfg):
     spikes = encode_input(imgs.to(dev), cfg)
     knobs = dict(capacity=256, channel_block=8, batch_tile=8)
     n_conv = sum(isinstance(s, ConvSpec) for s in cfg.layers)
-    plans = dict(zip(PATH_KERNELS, (
+    plans = dict(zip(BATCHED_PATHS, (
         plan_network(cfg, event_par=None, **knobs),
         plan_network(cfg, event_par=1, **knobs),
         plan_network(cfg, variant=["fused-handoff"] * n_conv, **knobs),
         plan_network(cfg, variant=["banked-cuda"] * n_conv, **knobs))))
     print(f"serve plan:\n{plans['serve plan (interlaced)']}")
-    got, launches = {}, {}
-    for path, kernels in PATH_KERNELS.items():
-        runtime.reset_launches()
-        got[path] = forward(params, spikes, cfg, plans[path])
-        torch.cuda.synchronize()
-        counts = dict(runtime.LAUNCHES)
-        print(f"launches per forward, {path}: {counts}")
-        for k, n in counts.items():
-            if k in kernels and n <= 0:
-                fail(f"kernel {k} was never launched on the {path} path")
-            if k not in kernels and n:
-                fail(f"kernel {k} was launched {n}x on the {path} path")
-            if k in kernels:
-                launches.setdefault(k, n)
+    got, launches, cpu = {}, {}, {}
+    for path in BATCHED_PATHS:
+        got[path] = counted(path, lambda p=plans[path]: forward(
+            params, spikes, cfg, p), launches)
     for path, plan in plans.items():
-        hold(f"csnn_paper.FULL {path}", got[path],
-             forward(to_cpu(params), spikes.cpu(), cfg, plan))
+        cpu[path] = forward(to_cpu(params), spikes.cpu(), cfg, plan)
+        hold(f"csnn_paper.FULL {path}", got[path], cpu[path])
     serve = got["serve plan (interlaced)"]
     for path in ("fused-handoff", "banked-cuda"):
         hold_same(f"csnn_paper.FULL {path} vs serve plan (card)", got[path],
@@ -423,6 +517,9 @@ def main_path(dev, cfg, wcfg):
     hold_same("csnn_paper.FULL fused-handoff, second run",
               forward(params, spikes, cfg, plans["fused-handoff"]),
               got["fused-handoff"])
+    check_fc_capacity(params, spikes, cfg, plans["serve plan (interlaced)"],
+                      got["serve plan (interlaced)"],
+                      cpu["serve plan (interlaced)"])
     wparams = init_params(wcfg, seed=0, device=dev)
     wspikes = encode_input(imgs.to(dev), wcfg)
     for name, variant, ep in (("serve plan", None, None),
@@ -432,6 +529,136 @@ def main_path(dev, cfg, wcfg):
         hold(f"csnn_wide.FULL {name}", forward(wparams, wspikes, wcfg, wplan),
              forward(to_cpu(wparams), wspikes.cpu(), wcfg, wplan))
     return launches, params, imgs, plans
+
+
+def check_fc_capacity(params, spikes, cfg, plan, card, cpu) -> None:
+    """The event-driven sparse FC head on the serve plan's run: a queue
+    sized by ``calibrate_capacity(drive_active_counts(...))`` and a
+    truncating one over tied counts, each through ``snn_apply_batched`` on
+    the card and held against the CPU plain path's readout of the same
+    (already held equal) state.  The kept drive entries are compared
+    exactly (the head with W = I returns its compacted operand); the
+    calibrated queue's logits equal the dense head's exactly."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.aeq import calibrate_capacity
+    from repro_torch.core.csnn import snn_apply_batched, snn_readout
+    from repro_torch.core.sparse_ffn import (drive_active_counts,
+                                             event_readout)
+    state_g, state_c = card[2], cpu[2]
+    active = drive_active_counts(state_g.fc_drive)
+    d = state_g.fc_drive.shape[-1]
+    calibrated = min(calibrate_capacity(active), d)
+    truncating = max(1, int(active.min()) // 2)
+    eye = torch.eye(d)
+    for name, cap in (("calibrated", calibrated), ("truncating", truncating)):
+        fplan = dataclasses.replace(plan, fc_capacity=cap)
+        got = snn_apply_batched(params, spikes, cfg, fplan,
+                                collect_stats=False).cpu()
+        want = snn_readout(to_cpu(params), state_c, cfg, fplan)
+        kept_g = event_readout(state_g.fc_drive, eye.to(state_g.fc_drive.device),
+                               capacity=cap).cpu()
+        kept_c = event_readout(state_c.fc_drive, eye, capacity=cap)
+        if not torch.equal(kept_g, kept_c):
+            fail(f"fc_capacity {name} ({cap}): the card keeps other drive "
+                 f"entries than the CPU plain path")
+        if not (torch.allclose(got, want, **LOGIT_TOL)
+                and torch.equal(got.argmax(-1), want.argmax(-1))):
+            fail(f"fc_capacity {name} ({cap}): logits differ from the CPU "
+                 f"plain path by {(got - want).abs().max().item()}")
+        if name == "calibrated" and not torch.equal(got, card[0].cpu()):
+            fail(f"fc_capacity {cap} covers every drive entry "
+                 f"(max {int(active.max())}) but differs from the dense head")
+        print(f"fc_capacity {name} = {cap} (active drive entries "
+              f"{active.tolist()}): card == CPU plain path (kept entries "
+              f"exact, logit max diff {(got - want).abs().max().item():.3g})")
+
+
+def single_path(dev, cfg, params, plans, launches):
+    """Phases 4-5, slice 3: ``snn_apply`` (one sample) on 8
+    ``synth_digits`` images under the serve plan, event_par=1 and the
+    fused-handoff and banked-cuda pins; each run held against the CPU
+    plain path (stats exact, logits within tolerance, argmax equal) and
+    the card's ``snn_apply_batched`` on the same 8 images (stats exact,
+    logits within tolerance).  ``snn_apply_dense`` on the card holds
+    the argmax of runs at a covering capacity.  Returns the encoded images
+    (B, T, H, W, 1) on the card."""
+    import torch
+
+    from repro_torch.core.csnn import (encode_input, snn_apply,
+                                       snn_apply_batched, snn_apply_dense)
+    from repro_torch.core.plan import plan_network
+    from repro_torch.data.synthetic import synth_digits
+
+    h, w = cfg.input_hw
+    images, labels = synth_digits(B, seed=42)
+    spikes = encode_input(torch.from_numpy(images).to(dev), cfg)
+    dense = torch.stack([snn_apply_dense(params, spikes[b], cfg)
+                         for b in range(B)]).cpu()
+    cparams, cspikes = to_cpu(params), spikes.cpu()
+    for path in BATCHED_PATHS:
+        plan, name = plans[path], f"single, {path}"
+        runs = [counted(name, lambda: snn_apply(params, spikes[0], cfg, plan),
+                        launches)]
+        runs += [snn_apply(params, spikes[b], cfg, plan) for b in range(1, B)]
+        logits = torch.stack([r[0] for r in runs]).cpu()
+        blogits, bstats = snn_apply_batched(params, spikes, cfg, plan)
+        for b, (lg, st) in enumerate(runs):
+            lc, sc = snn_apply(cparams, cspikes[b], cfg, plan)
+            for i, (a, c, bs) in enumerate(zip(st, sc, bstats)):
+                for f in ("in_spike_counts", "out_spike_counts"):
+                    if not torch.equal(getattr(a, f).cpu(), getattr(c, f)):
+                        fail(f"{name} image {b}: layer {i} {f} differ from "
+                             f"the CPU plain path")
+                    if not torch.equal(getattr(a, f), getattr(bs, f)[b]):
+                        fail(f"{name} image {b}: layer {i} {f} differ from "
+                             f"snn_apply_batched on the card")
+            if not (torch.allclose(lg.cpu(), lc, **LOGIT_TOL)
+                    and lg.argmax().item() == lc.argmax().item()):
+                fail(f"{name} image {b}: logits differ from the CPU plain "
+                     f"path by {(lg.cpu() - lc).abs().max().item()}")
+        if not torch.isfinite(logits).all() or logits.shape != (B, 10):
+            fail(f"{name}: logits not finite or misshapen")
+        if not torch.allclose(logits, blogits.cpu(), **LOGIT_TOL):
+            fail(f"{name}: logits differ from snn_apply_batched by "
+                 f"{(logits - blogits.cpu()).abs().max().item()}")
+        agree = int((logits.argmax(-1) == dense.argmax(-1)).sum())
+        print(f"csnn_paper.FULL {name}: 8 synth_digits images == CPU plain "
+              f"path (stats exact) == snn_apply_batched on the card (stats "
+              f"exact, logit max diff "
+              f"{(logits - blogits.cpu()).abs().max().item():.3g}); argmax "
+              f"{logits.argmax(-1).tolist()}, snn_apply_dense's on "
+              f"{agree}/{B} ({truncated(runs, plan)} queues truncated)")
+    # The dense oracle equals the event path only where every queue holds
+    # all its events: at capacity 256 conv1's queues truncate (a 28x28 map
+    # of 32 channels fires above 256 cells), and the event path drops what
+    # the oracle keeps.  So the oracle is held at a covering capacity.
+    for ep in (None, 1):
+        plan = plan_network(cfg, capacity=h * w, channel_block=8,
+                            event_par=ep)
+        runs = [snn_apply(params, spikes[b], cfg, plan) for b in range(B)]
+        logits = torch.stack([r[0] for r in runs]).cpu()
+        if truncated(runs, plan):
+            fail(f"capacity {h * w} truncated a queue")
+        if not torch.equal(logits.argmax(-1), dense.argmax(-1)):
+            fail(f"covering capacity, event_par={ep}: argmax "
+                 f"{logits.argmax(-1).tolist()} differs from "
+                 f"snn_apply_dense's {dense.argmax(-1).tolist()}")
+        print(f"csnn_paper.FULL single, capacity {h * w} (no queue "
+              f"truncated), event_par={ep}: argmax "
+              f"{logits.argmax(-1).tolist()} == snn_apply_dense's (logit max "
+              f"diff {(logits - dense).abs().max().item():.3g}; labels "
+              f"{labels.tolist()}, random weights)")
+    return spikes
+
+
+def truncated(runs, plan) -> int:
+    """Queues of these single-sample runs whose demand exceeded their
+    layer's capacity."""
+    return sum(int((st.in_spike_counts > lp.capacity).sum())
+               for _, stats in runs for st, lp in zip(stats, plan.layers))
 
 
 def timing(dev, cfg, params, imgs, plans, card):
@@ -716,6 +943,131 @@ def timing_fused(dev, cfg, params, spikes, fplan, card) -> list:
     ]
 
 
+def timing_single(dev, cfg, params, plans, spikes, card) -> list:
+    """Phase 7, slice 3: the single-queue conv units at conv1 of one
+    sample (image 0 of the single-sample phase; mean per launch over every
+    (t, c_in) launch of channel block 0), against their bound, plain
+    versions and ``F.conv2d`` of one input channel's kept events; then
+    single-sample samples/s under the serve plan and event_par=1.
+    Returns the kernel records."""
+    import torch
+
+    from repro_torch.core.aeq import build_aeq_batched, segment_pad
+    from repro_torch.core.csnn import snn_apply
+    from repro_torch.core.scheduler import run_conv_layer_planned
+    from repro_torch.kernels.event_conv.kernel import (
+        event_conv_cuda, event_conv_cuda_interlaced)
+    from repro_torch.kernels.event_conv.ref import (event_conv_ref,
+                                                    event_conv_ref_interlaced)
+
+    serve_plan = plans["serve plan (interlaced)"]
+    seq_plan = plans["event_par=1 (sequential)"]
+    lp0, lp1, lp1s = serve_plan.layers[0], serve_plan.layers[1], seq_plan.layers[1]
+    x1, _ = run_conv_layer_planned(spikes[0], params["conv0"]["w"],
+                                   params["conv0"]["b"], cfg.v_t, lp0)
+    fm = x1.permute(0, 3, 1, 2)                      # (T, C_in, H, W)
+    q_seq = build_aeq_batched(fm, lp1s.capacity, geometry=lp1s.geometry)
+    q_int = segment_pad(build_aeq_batched(fm, lp1.capacity,
+                                          geometry=lp1.geometry),
+                        lp1.event_par, lp1.geometry)
+    t_steps, c_in, h, w = fm.shape
+    cb, (hp, wp, _) = lp1.channel_block, lp1.vm_tile
+    kern = params["conv1"]["w"][:, :, :, :cb].permute(2, 0, 1, 3).contiguous()
+    vm = torch.zeros((hp, wp, cb), device=dev)
+    ep = lp1.event_par
+
+    def slabs(qs):
+        return [(qs.coords[t, ci], qs.valid[t, ci], kern[ci])
+                for t in range(t_steps) for ci in range(c_in)]
+
+    def loop(fn, slab_list):
+        def run():
+            for c, v, k in slab_list:
+                fn(c, v, k)
+        return run
+
+    def bound(slab_list):
+        """Least time of the same launches: bytes (tile in and out, queue,
+        kernel) over the HBM rate vs this data's adds over the f32 rate."""
+        nbytes = nops = 0
+        for c, v, k in slab_list:
+            nbytes += 2 * vm.numel() * 4 + c.numel() * 4 + v.numel() + k.numel() * 4
+            nops += int(v.sum()) * k.numel()
+        tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
+        return (max(tb, to) * 1e3 / len(slab_list),
+                "bytes" if tb >= to else "operations")
+
+    seq_slabs, int_slabs = slabs(q_seq), slabs(q_int)
+
+    def seq_k(c, v, k):
+        event_conv_cuda(vm, c, v, k, out=vm)
+
+    def int_k(c, v, k):
+        event_conv_cuda_interlaced(vm, c, v, k, event_par=ep, out=vm)
+
+    t_seq = graph_time_ms(loop(seq_k, seq_slabs)) / len(seq_slabs)
+    t_int = graph_time_ms(loop(int_k, int_slabs)) / len(int_slabs)
+    h_seq = cuda_time_ms(loop(seq_k, seq_slabs), 3) / len(seq_slabs)
+    h_int = cuda_time_ms(loop(int_k, int_slabs), 3) / len(int_slabs)
+    p_seq = cuda_time_ms(loop(lambda c, v, k: event_conv_ref(vm, c, v, k),
+                              seq_slabs), 1) / len(seq_slabs)
+    p_int = cuda_time_ms(loop(lambda c, v, k: event_conv_ref_interlaced(
+        vm, c, v, k, event_par=ep), int_slabs), 1) / len(int_slabs)
+    # yardstick: fp32 conv2d (TF32 off) of the dense map of the kept events
+    dense = []
+    for c, v, k in seq_slabs:
+        d = torch.zeros(h * w, device=dev)
+        d.scatter_add_(0, (c[:, 0].long() * w + c[:, 1].long()).clamp(min=0),
+                       v.float())
+        dense.append((d.view(1, 1, h, w),
+                      k.permute(2, 0, 1)[:, None].contiguous(), None))
+    t_lib = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
+        d, k, padding=lp1.geometry.halo), dense)) / len(dense)
+    b_seq, by_seq = bound(seq_slabs)
+    b_int, by_int = bound(int_slabs)
+
+    def samples_per_s(plan, iters=3):
+        def run():
+            for b in range(B):
+                snn_apply(params, spikes[b], cfg, plan, collect_stats=False)
+        run()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return B / statistics.median(ts)
+
+    sps_int, sps_seq = samples_per_s(serve_plan), samples_per_s(seq_plan)
+    device_profile(lambda: snn_apply(params, spikes[0], cfg, serve_plan),
+                   "single-sample serve plan forward", 1 / sps_int)
+    tag = f"[{card}]"
+    print(f"timing event_conv_interlaced_single (conv1, one sample, depth "
+          f"{lp1.queue_depth}, event_par {ep}, tile {hp}x{wp}x{cb} f32): "
+          f"device {t_int:.5f} ms/launch, host-bound {h_int:.5f}, plain "
+          f"{p_int:.4f}, bound {b_int:.6f} ({by_int}), conv2d {t_lib:.5f} "
+          f"{tag}")
+    print(f"timing event_conv_seq_single (conv1, one sample, capacity "
+          f"{lp1s.capacity}, tile {hp}x{wp}x{cb} f32): device {t_seq:.5f} "
+          f"ms/launch, host-bound {h_seq:.5f}, plain {p_seq:.4f}, bound "
+          f"{b_seq:.6f} ({by_seq}), conv2d {t_lib:.5f} {tag}")
+    print(f"timing end-to-end csnn_paper.FULL one sample per forward "
+          f"(snn_apply over 8 images): serve plan {sps_int:.1f} samples/s, "
+          f"event_par=1 {sps_seq:.1f} samples/s {tag}")
+    src = "src/repro_torch/kernels/csrc/event_conv.cu"
+    ref = "src/repro/kernels/event_conv/kernel.py:"
+    return [
+        dict(name="event_conv_interlaced_single", route="cuda", source=src,
+             replaces=ref + "317", ms=t_int, plain_ms=p_int, bound_ms=b_int,
+             bound_by=by_int, library_ms=t_lib),
+        dict(name="event_conv_seq_single", route="cuda", source=src,
+             replaces=ref + "186", ms=t_seq, plain_ms=p_seq, bound_ms=b_seq,
+             bound_by=by_seq, library_ms=t_lib),
+    ]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -742,8 +1094,11 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"ptxas {src}: {line.strip()}")
     max_err = check_kernels(dev)                         # phase 3
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
     launches, params, imgs, plans = main_path(           # phases 4-5
         dev, csnn_paper.FULL, csnn_wide.FULL)
+    sspikes = single_path(dev, csnn_paper.FULL, params, plans, launches)
+    print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
     env = dict(os.environ, PYTHONPATH=str(SRC))          # phase 6
     serve = subprocess.run(
@@ -753,9 +1108,17 @@ def main() -> int:
     print(serve.stdout, end="")
     if serve.returncode != 0 or serve.stdout.count("req ") != 8:
         fail(f"serve exited {serve.returncode}:\n{serve.stderr}")
+    quick = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.quickstart"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    print(quick.stdout, end="")
+    if quick.returncode != 0 or "dense-oracle match: True" not in quick.stdout:
+        fail(f"quickstart exited {quick.returncode}:\n{quick.stderr}")
 
     kernels = timing(dev, csnn_paper.FULL, params, imgs, plans,  # phase 7
                      card)
+    kernels += timing_single(dev, csnn_paper.FULL, params, plans, sspikes,
+                             card)
     for k in kernels:
         k.update(launches=launches[k["name"]], max_abs_err=max_err[k["name"]])
     print(f"total: {time.perf_counter() - t_start:.1f} s")

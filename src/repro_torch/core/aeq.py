@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .geometry import GEOM_3X3, ConvGeometry
@@ -236,6 +237,30 @@ def scatter_aeq(queue: EventQueue, shape: tuple[int, int]) -> torch.Tensor:
     kept = queue.coords[queue.valid].long()
     fmap[kept[:, 0], kept[:, 1]] = True
     return fmap
+
+
+def calibrate_capacity(spike_counts, *, percentile: float = 99.9,
+                       margin: float = 1.25, align: int = 8) -> int:
+    """Queue capacity covering an observed spike-count distribution: the
+    ``percentile`` count times a safety ``margin``, rounded up to
+    ``align`` (the analogue of sizing the FPGA's queue BRAM from a
+    calibration run).  ``spike_counts``: any array or tensor of counts."""
+    if isinstance(spike_counts, torch.Tensor):
+        spike_counts = spike_counts.detach().cpu().numpy()
+    counts = np.asarray(spike_counts, dtype=np.float64).ravel()
+    if counts.size == 0:
+        return align
+    cap = float(np.percentile(counts, percentile)) * margin
+    return int(np.ceil(max(cap, 1.0) / align) * align)
+
+
+def calibrate_capacities(per_layer_counts, *, percentile: float = 99.9,
+                         margin: float = 1.25, align: int = 8) -> list[int]:
+    """One :func:`calibrate_capacity` per conv layer, e.g. from
+    ``[st.in_spike_counts for st in stats]`` of a calibration run; feed
+    the result to ``plan_network(cfg, capacity=...)``."""
+    return [calibrate_capacity(c, percentile=percentile, margin=margin,
+                               align=align) for c in per_layer_counts]
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """CSNN model assembly: the paper's 28x28-32C3-32C3-P3-10C3-F10 network
-(main-path port of ``repro.core.csnn``).
+(port of ``repro.core.csnn``).
 
 * ``snn_apply_batched`` — event-driven m-TTFS inference for a sample
   batch, the serving entry point: ``init_state``, then
   ``snn_step_chunk`` once per time chunk, then ``snn_readout``;
+* ``snn_apply`` — the same inference for ONE sample, layer by layer
+  (``scheduler.run_conv_layer_planned``, then ``run_fc_head``);
+* ``snn_apply_dense`` — the frame-based spiking oracle, and
+  ``ann_apply`` — the clamped-ReLU CNN the network is converted from;
 * :class:`CSNN` — an ``nn.Module`` holding the parameters under the JAX
   package's keys (``conv0.w``, ``fc3.b``, ...) whose forward is
   ``snn_apply_batched``.
@@ -22,9 +26,11 @@ import torch
 from torch import nn
 
 from .encoding import mttfs_thresholds, multi_threshold_encode
+from .event_conv import conv2d_same
 from .plan import NOT_PORTED, NetworkPlan, plan_network
-from .scheduler import (LayerStats, head_product, init_conv_carry,
-                        run_conv_layer_batched_chunk)
+from .scheduler import (LayerStats, fc_readout, init_conv_carry,
+                        run_conv_layer_batched_chunk, run_conv_layer_dense,
+                        run_conv_layer_planned, run_fc_head)
 
 
 @dataclass(frozen=True)
@@ -49,6 +55,7 @@ class CSNNConfig:
         ConvSpec(32), ConvSpec(32, pool=3), ConvSpec(10), FCSpec(10)))
     t_steps: int = 5
     v_t: float = 1.0
+    relu_clamp: float = 1.0  # clamped-ReLU ceiling of the ANN (ann_apply)
 
 
 def conv_out_hw(hw: tuple[int, int], spec: ConvSpec) -> tuple[int, int]:
@@ -81,11 +88,103 @@ def init_params(cfg: CSNNConfig, *, seed: int = 0, dtype=torch.float32,
             for k, p in params.items()}
 
 
+def ann_apply(params: dict, images: torch.Tensor,
+              cfg: CSNNConfig) -> torch.Tensor:
+    """Clamped-ReLU CNN forward (the training path): images (B, H, W,
+    C_in) in [0, 1] -> (B, n_classes).  Convolutions in full float32."""
+    x = images
+    for idx, spec in enumerate(cfg.layers):
+        if isinstance(spec, ConvSpec):
+            p = params[f"conv{idx}"]
+            x = (conv2d_same(x, p["w"]) + p["b"]).clamp(0.0, cfg.relu_clamp)
+            if spec.pool:
+                x = _max_pool(x, spec.pool)
+        else:
+            p = params[f"fc{idx}"]
+            x = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
+    return x
+
+
+def _max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Non-overlapping max-pool of (B, H, W, C), ragged edges padded with
+    -inf."""
+    x = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                (0, -x.shape[2] % window,
+                                 0, -x.shape[1] % window),
+                                value=float("-inf"))
+    return torch.nn.functional.max_pool2d(x, window).permute(0, 2, 3, 1)
+
+
 def encode_input(images: torch.Tensor, cfg: CSNNConfig) -> torch.Tensor:
     """(B, H, W, C) floats in [0, 1] -> (B, T, H, W, C) m-TTFS spikes."""
     thresholds = mttfs_thresholds(cfg.t_steps)
     return multi_threshold_encode(images, thresholds,
                                   cfg.t_steps).transpose(0, 1)
+
+
+def _resolve_plan(cfg: CSNNConfig, plan: Optional[NetworkPlan],
+                  capacity, channel_block: int,
+                  sat_bits: Optional[int]) -> NetworkPlan:
+    """The kwargs shim: a plan from the loose knobs when none is given,
+    else the given plan validated against ``cfg``."""
+    if plan is None:
+        return plan_network(cfg, capacity=capacity,
+                            channel_block=channel_block, sat_bits=sat_bits)
+    return plan.validate(cfg)
+
+
+def snn_apply(
+    params: dict,
+    in_spikes: torch.Tensor,
+    cfg: CSNNConfig,
+    plan: Optional[NetworkPlan] = None,
+    *,
+    capacity: int | Sequence[int] = 256,
+    channel_block: int = 1,
+    sat_bits: Optional[int] = None,
+    collect_stats: bool = True,
+):
+    """Event-driven m-TTFS inference for ONE sample.
+
+    in_spikes: (T, H, W, C_in) bool on the parameters' device.  Returns
+    (logits (n_classes,), [LayerStats, ...]) or logits alone.  ``plan``
+    carries the per-layer sizing; the ``capacity``/``channel_block``/
+    ``sat_bits`` kwargs are the shim spelling, ignored when a plan is
+    given.  ``plan.t_chunk`` plays no part: the layers run whole-T.
+    """
+    plan = _resolve_plan(cfg, plan, capacity, channel_block, sat_bits)
+    x, stats, ci, logits = in_spikes, [], 0, None
+    for idx, spec in enumerate(cfg.layers):
+        if isinstance(spec, ConvSpec):
+            p = params[f"conv{idx}"]
+            x, st = run_conv_layer_planned(x, p["w"], p["b"], cfg.v_t,
+                                           plan.layers[ci])
+            stats.append(st)
+            ci += 1
+        else:
+            p = params[f"fc{idx}"]
+            logits = run_fc_head(x, p["w"], p["b"], capacity=plan.fc_capacity)
+    if logits is None:
+        raise ValueError("cfg has no FC head layer")
+    return (logits, stats) if collect_stats else logits
+
+
+def snn_apply_dense(params: dict, in_spikes: torch.Tensor,
+                    cfg: CSNNConfig) -> torch.Tensor:
+    """Frame-based spiking oracle of :func:`snn_apply` for one sample
+    (``scheduler.run_conv_layer_dense`` per layer, the dense head)."""
+    x, logits = in_spikes, None
+    for idx, spec in enumerate(cfg.layers):
+        if isinstance(spec, ConvSpec):
+            p = params[f"conv{idx}"]
+            x = run_conv_layer_dense(x, p["w"], p["b"], cfg.v_t,
+                                     pool=spec.pool)
+        else:
+            p = params[f"fc{idx}"]
+            logits = run_fc_head(x, p["w"], p["b"])
+    if logits is None:
+        raise ValueError("cfg has no FC head layer")
+    return logits
 
 
 class CSNNState(NamedTuple):
@@ -158,15 +257,15 @@ def snn_step_chunk(params: dict, state: CSNNState,
 def snn_readout(params: dict, state: CSNNState, cfg: CSNNConfig,
                 plan: Optional[NetworkPlan] = None) -> torch.Tensor:
     """Classification-unit readout: drive @ W + T * b, never thresholded
-    (the product is :func:`scheduler.head_product`)."""
-    if plan is not None and plan.fc_capacity is not None:
-        raise NotImplementedError(NOT_PORTED["fc_capacity"])
+    (:func:`scheduler.fc_readout`; through the event-driven sparse head
+    when ``plan.fc_capacity`` is set)."""
+    capacity = plan.fc_capacity if plan is not None else None
     logits = None
     for idx, spec in enumerate(cfg.layers):
         if not isinstance(spec, ConvSpec):
             p = params[f"fc{idx}"]
-            logits = (head_product(state.fc_drive, p["w"])
-                      + cfg.t_steps * p["b"])
+            logits = fc_readout(state.fc_drive, p["w"], p["b"], cfg.t_steps,
+                                capacity)
     if logits is None:
         raise ValueError("cfg has no FC head layer")
     return logits

@@ -14,6 +14,10 @@ plain loops here replay events one at a time, vectorized over the batch
 of queues.  ``replay_events_`` is the one plain event loop: the plain
 versions of the CUDA kernels (``kernels/event_conv/ref.py``) run it too.
 
+``dense_conv`` (and ``conv2d_same`` under it) is the frame-based oracle:
+the sliding-window convolution in full float32, TF32 switched off for
+the call only.
+
 The banked machinery (``bank_vm`` ... ``apply_events_banked_batched``)
 applies a whole interlace column at once: a cell receives at most one
 event per column, so one masked add per (column, bank) replaces the event
@@ -22,6 +26,7 @@ order, per-event saturation included.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import torch
@@ -133,6 +138,54 @@ def apply_events_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
     n_steps = min(cap, -(-max_count // block) * block)
     replay_events_(vm, coords, valid, k_rot, slice(0, n_steps))
     return vm[..., 0] if squeeze else vm
+
+
+def apply_events_blocked(vm_padded: torch.Tensor, queue: EventQueue,
+                         kernel: torch.Tensor, *, block: int = 64
+                         ) -> torch.Tensor:
+    """:func:`apply_events` with block-granular early exit: whole blocks
+    of ``block`` slots while a block starts below ``queue.count``, so the
+    work scales with ceil(count / block), not with the capacity."""
+    return apply_events_batched(vm_padded[None], queue.coords[None],
+                                queue.valid[None], queue.count.reshape(1),
+                                kernel, block=block)[0]
+
+
+@contextmanager
+def _fp32_convolutions():
+    """cuDNN convolutions in full float32 inside the block: TF32 is off
+    for the block only, and the process-wide switch is restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv2d_same(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """SAME cross-correlation (``lax.conv_general_dilated`` with NHWC /
+    HWIO / NHWC and padding ``"SAME"``) of float x (N, H, W, C_in) with an
+    odd (kh, kw, C_in, C_out) kernel, in full float32."""
+    kh, kw = kernel.shape[:2]
+    with _fp32_convolutions():
+        out = torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+            padding=(kh // 2, kw // 2))
+    return out.permute(0, 2, 3, 1)
+
+
+def dense_conv(fmap: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Sliding-window oracle: SAME conv of a binary (H, W) fmap with a
+    float (kh, kw) or (kh, kw, C_out) kernel; returns (H, W) or (H, W,
+    C_out) in the kernel's dtype.  The frame-based baseline the paper
+    compares against (SIES-style)."""
+    if not kernel.dtype.is_floating_point:
+        raise ValueError(f"dense_conv takes a float kernel, got "
+                         f"{kernel.dtype}")
+    k = kernel[:, :, None, None] if kernel.ndim == 2 else kernel[:, :, None]
+    out = conv2d_same(fmap.to(kernel.dtype)[None, :, :, None], k)[0]
+    return out[:, :, 0] if kernel.ndim == 2 else out
 
 
 # ---------------------------------------------------------------------------

@@ -29,7 +29,7 @@ from repro_torch.kernels.event_conv.ops import (SMEM_PER_BLOCK,
                                                 snap_block_e_for_par,
                                                 snap_divisor)
 
-from .aeq import interlaced_capacity
+from .aeq import calibrate_capacity, interlaced_capacity
 from .geometry import GEOM_3X3, ConvGeometry
 
 _VM_DTYPES = {None: torch.float32, 8: torch.int8, 16: torch.int16}
@@ -49,9 +49,6 @@ KERNEL_VARIANTS = ("sequential", "banked-cuda", "interlaced-cuda",
 
 # What the port does not run yet, and where ROADMAP.md lists it.
 NOT_PORTED = {
-    "fc_capacity": "fc_capacity (the event-driven sparse head) is not "
-                   "ported yet: see ROADMAP.md Queue 1, 'fc_capacity sparse "
-                   "head'",
     "stream": "streamed (StreamState) input is not ported yet: see "
               "ROADMAP.md Queue 1, 'Streaming ingestion'",
     "tune": "the measured tuner and plan cache are not ported yet "
@@ -149,7 +146,7 @@ class NetworkPlan:
     t_steps: int
     batch_tile: int = 8             # serving batch granularity
     t_chunk: Optional[int] = None   # time steps per snn_step_chunk call
-    fc_capacity: Optional[int] = None  # event-driven FC head (not ported)
+    fc_capacity: Optional[int] = None  # event-driven sparse FC head depth
 
     @property
     def chunk_steps(self) -> int:
@@ -287,6 +284,9 @@ def plan_network(
     channel_block: int | Sequence[int] = 1,
     block_e: Optional[int] | Sequence[Optional[int]] = None,
     sat_bits: Optional[int] = None,
+    stats: Optional[Sequence] = None,
+    percentile: float = 99.9,
+    margin: float = 1.25,
     batch_tile: int = 8,
     per_layer: bool = True,
     smem_budget: Optional[int] = None,
@@ -299,8 +299,12 @@ def plan_network(
     """Derive a :class:`NetworkPlan` from a ``CSNNConfig`` (analytic
     sizing).  ``capacity``/``channel_block``/``event_par``/``block_e``/
     ``variant`` take one value or one per conv layer; ``t_chunk`` snaps to
-    a divisor of T.  Calibration from stats, streaming ingestion and the
-    measured tuner are not ported yet."""
+    a divisor of T.  Per-layer spike-count ``stats`` (e.g.
+    ``LayerStats.in_spike_counts`` of a calibration run) replace each
+    layer's requested capacity with ``aeq.calibrate_capacity`` of its own
+    counts (``percentile``, ``margin``, aligned to 8).  ``fc_capacity``
+    routes the head through the event-driven sparse readout.  Streaming
+    ingestion and the measured tuner are not ported yet."""
     if tune != "analytic":
         raise NotImplementedError(f"tune={tune!r}: {NOT_PORTED['tune']}")
     from .csnn import ConvSpec, conv_out_hw
@@ -321,6 +325,12 @@ def plan_network(
                          f"block_e/variant per conv layer ({n}), got "
                          f"{len(caps)}/{len(cbs)}/{len(eps)}/{len(bes)}/"
                          f"{len(variants)}")
+    if stats is not None:
+        if len(stats) != n:
+            raise ValueError(f"need one stats entry per conv layer ({n}), "
+                             f"got {len(stats)}")
+        caps = [calibrate_capacity(s, percentile=percentile, margin=margin,
+                                   align=8) for s in stats]
     if t_chunk is not None:
         t_chunk = snap_t_chunk(cfg.t_steps, t_chunk)
     plans, hw, c_in = [], tuple(cfg.input_hw), cfg.input_channels

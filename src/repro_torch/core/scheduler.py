@@ -1,5 +1,5 @@
-"""Channel-multiplexed layer scheduling over a sample batch (paper
-Sec. V-D, Algorithm 1; main-path port of ``repro.core.scheduler``).
+"""Channel-multiplexed layer scheduling (paper Sec. V-D, Algorithm 1;
+port of ``repro.core.scheduler``).
 
 Per conv layer and time chunk: ONE batched compaction builds every
 (t, b, c_in) event set; then, for each output-channel block and each time
@@ -32,6 +32,17 @@ carrier, and the runner returns the carrier in place of the dense
 spikes.  At the network edge the fused layer builds its carrier from the
 dense input with ``aeq.build_fused_handoff``.
 
+One sample.  A batch of one (``run_conv_layer_planned`` runs the same
+body on one) launches the single-queue kernels for its queue variants
+(``event_conv_cuda`` / ``event_conv_cuda_interlaced``, a grid over
+channel slices, where a batched kernel would run one CTA); the banked
+variants feed the banked kernel a one-tile carrier (JAX builds it with
+``build_fused_handoff`` at every layer of this path, so nothing is
+emitted between layers there).  ``run_conv_layer_dense`` is the
+frame-based oracle, ``run_fc_head`` the one-sample head; the kwargs
+shims ``run_conv_layer`` and ``run_conv_layer_batched`` derive a
+one-layer plan on the fly.
+
 The kernels' wrappers run their plain versions for CPU tensors, so the
 same code is the CPU reference path.
 """
@@ -42,17 +53,18 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from repro_torch.kernels.event_conv.kernel import (
-    event_conv_cuda_banked, event_conv_cuda_batched,
-    event_conv_cuda_interlaced_batched)
+    event_conv_cuda, event_conv_cuda_banked, event_conv_cuda_batched,
+    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
 from repro_torch.kernels.threshold_pool.kernel import (
     threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 
 from .aeq import (BatchedEventQueue, FusedHandoff, build_aeq_batched,
                   build_bank_masks, build_fused_handoff, check_handoff,
                   handoff_shape, segment_pad)
-from .event_conv import tap_matrix
+from .event_conv import conv2d_same, tap_matrix
 from .geometry import ConvGeometry
-from .plan import NOT_PORTED, LayerPlan
+from .plan import LayerPlan, plan_conv_layer
+from .threshold import as_vm_scalar, or_pool
 
 #: the consumer's (capacity, geometry) a producer emits its carrier for
 Emit = Optional[tuple[int, ConvGeometry]]
@@ -60,7 +72,9 @@ BANKED = ("banked-cuda", "fused-handoff")
 
 
 class LayerStats(NamedTuple):
-    """Per-layer observability (Table III, capacity calibration)."""
+    """Per-layer observability (Table III, capacity calibration).  The
+    batched runners give the shapes below; ``run_conv_layer_planned``
+    (one sample) drops the leading B."""
 
     in_spike_counts: torch.Tensor   # (B, T, C_in) events fed to the conv unit
     out_spike_counts: torch.Tensor  # (B, T, C_out) spikes (pre-pool)
@@ -179,6 +193,7 @@ def _run_chunk_from_events(
     queues for the queue variants, the padded bank masks (t, C_in, B,
     n_banks, HB+2, WB+2) for the banked ones."""
     b_sz, t_steps, h, w, c_in = shape
+    single = b_sz == 1  # one queue per launch: the single-queue kernels
     c_out = kernels.shape[-1]
     cb = lp.channel_block
     n_blocks = c_out // cb
@@ -224,12 +239,23 @@ def _run_chunk_from_events(
 
     for blk in range(n_blocks):
         vm = vm_b[blk]
+        tile = vm[0]  # the sample's tile when the batch is one
         fired = fired0[blk]
         c0, c1 = blk * cb, (blk + 1) * cb
         for t in range(t_steps):
             if variant in BANKED:
                 event_conv_cuda_banked(vm, events[t], taps[blk],
                                        geometry=lp.geometry, out=vm)
+            elif single:  # one tile, one queue per (t, c_in)
+                for ci in range(c_in):
+                    if variant == "interlaced-cuda":
+                        event_conv_cuda_interlaced(
+                            tile, coords[t, ci, 0], valid[t, ci, 0],
+                            kb[blk, ci], event_par=lp.event_par, out=tile)
+                    else:
+                        event_conv_cuda(tile, coords[t, ci, 0],
+                                        valid[t, ci, 0], kb[blk, ci],
+                                        out=tile)
             else:
                 for ci in range(c_in):
                     if variant == "interlaced-cuda":
@@ -280,16 +306,162 @@ def _run_chunk_from_events(
     return spikes_out, new_carry, stats
 
 
+def run_conv_layer_planned(
+    spikes_in: torch.Tensor,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    lp: LayerPlan,
+) -> tuple[torch.Tensor, LayerStats]:
+    """Run one spiking conv layer for all T steps of ONE sample,
+    Algorithm-1 style.
+
+    spikes_in: (T, H, W, C_in) bool; kernels (kh, kw, C_in, C_out)
+    unrotated, the window matching ``lp.geometry``; bias (C_out,).
+    Returns (spikes_out (T, H', W', C_out) bool, LayerStats with
+    in_spike_counts (T, C_in), out_spike_counts (T, C_out) and a scalar
+    in_sparsity).
+    """
+    carry = init_conv_carry(lp, 1, device=spikes_in.device)
+    out, _, st = run_conv_layer_batched_chunk(
+        spikes_in[None], kernels, bias, v_t, lp, carry)
+    return out[0], st._replace(in_spike_counts=st.in_spike_counts[0],
+                               out_spike_counts=st.out_spike_counts[0],
+                               in_sparsity=st.in_sparsity[0])
+
+
+def _shim_plan(spikes_shape, kernels, *, capacity, pool, channel_block,
+               sat_bits, block_e=None) -> LayerPlan:
+    """The one-layer plan of the kwargs shims (JAX's
+    ``plan_conv_layer(0, "conv", ...)``)."""
+    h, w, c_in = spikes_shape[-3:]
+    return plan_conv_layer(
+        0, "conv", (h, w), c_in, kernels.shape[-1], capacity=capacity,
+        pool=pool, channel_block=channel_block, block_e=block_e,
+        sat_bits=sat_bits,
+        geometry=ConvGeometry.from_kernel_shape(kernels.shape))
+
+
+def run_conv_layer(
+    spikes_in: torch.Tensor,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    *,
+    capacity: int,
+    pool: Optional[int] = None,
+    channel_block: int = 1,
+    sat_bits: Optional[int] = None,
+) -> tuple[torch.Tensor, LayerStats]:
+    """Kwargs shim over :func:`run_conv_layer_planned`: derives a
+    one-layer plan from the loose knobs.  The membrane dtype follows
+    ``sat_bits``; the tensors' device picks kernels or plain path."""
+    lp = _shim_plan(spikes_in.shape, kernels, capacity=capacity, pool=pool,
+                    channel_block=channel_block, sat_bits=sat_bits)
+    return run_conv_layer_planned(spikes_in, kernels, bias, v_t, lp)
+
+
+def run_conv_layer_batched_planned(
+    spikes_in: torch.Tensor,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    lp: LayerPlan,
+) -> tuple[torch.Tensor, LayerStats]:
+    """Algorithm 1 over a sample batch (B, T, H, W, C_in): one whole-T
+    :func:`run_conv_layer_batched_chunk` from a fresh carry.  Returns
+    (spikes_out (B, T, H', W', C_out), LayerStats)."""
+    carry = init_conv_carry(lp, spikes_in.shape[0], device=spikes_in.device)
+    spikes_out, _, stats = run_conv_layer_batched_chunk(
+        spikes_in, kernels, bias, v_t, lp, carry)
+    return spikes_out, stats
+
+
+def run_conv_layer_batched(
+    spikes_in: torch.Tensor,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    *,
+    capacity: int,
+    pool: Optional[int] = None,
+    channel_block: int = 1,
+    sat_bits: Optional[int] = None,
+    event_block: Optional[int] = None,
+) -> tuple[torch.Tensor, LayerStats]:
+    """Kwargs shim over :func:`run_conv_layer_batched_planned`
+    (``event_block=None`` autotunes the event block)."""
+    lp = _shim_plan(spikes_in.shape, kernels, capacity=capacity, pool=pool,
+                    channel_block=channel_block, sat_bits=sat_bits,
+                    block_e=event_block)
+    return run_conv_layer_batched_planned(spikes_in, kernels, bias, v_t, lp)
+
+
+def _pool_all(spikes: torch.Tensor, window: int) -> torch.Tensor:
+    """OR-max-pool (..., H, W, C) binary maps over non-overlapping
+    windows (ragged edges pad with False)."""
+    return or_pool(spikes.movedim(-1, -3), window).movedim(-3, -1)
+
+
+def run_conv_layer_dense(
+    spikes_in: torch.Tensor,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    *,
+    pool: Optional[int] = None,
+) -> torch.Tensor:
+    """Frame-based oracle of :func:`run_conv_layer` (sliding-window conv,
+    SIES-style), float32: every step vm += conv(x_t) + bias, spikes =
+    (vm > v_t) | fired.  spikes_in (T, H, W, C_in) -> (T, H', W', C_out)
+    bool.  The T convolutions run as one batched call."""
+    u = conv2d_same(spikes_in.to(torch.float32), kernels.to(torch.float32))
+    b = bias.to(torch.float32)
+    thr = as_vm_scalar(v_t, torch.float32)
+    vm = torch.zeros_like(u[0])
+    fired = torch.zeros(u.shape[1:], dtype=torch.bool, device=u.device)
+    spikes = []
+    for t in range(u.shape[0]):
+        vm = vm + u[t] + b
+        fired = (vm > thr) | fired
+        spikes.append(fired)
+    out = torch.stack(spikes)
+    return _pool_all(out, pool) if pool is not None else out
+
+
+def fc_readout(drive: torch.Tensor, weights: torch.Tensor,
+               bias: torch.Tensor, t_steps: int,
+               capacity: Optional[int] = None) -> torch.Tensor:
+    """Classification unit on the accumulated (..., D) spike drive:
+    drive @ W + T * b (:func:`head_product`), never thresholded.
+    ``capacity`` routes the drive through the event-driven sparse head
+    (``sparse_ffn.event_readout``): top-``capacity`` compaction scattered
+    back into the same product, equal to the dense head whenever the queue
+    covers every nonzero drive entry."""
+    if capacity is None:
+        return head_product(drive, weights) + t_steps * bias
+    from .sparse_ffn import event_readout  # it imports head_product from here
+    return event_readout(drive, weights, capacity=capacity) + t_steps * bias
+
+
+def run_fc_head(spikes_in: torch.Tensor, weights: torch.Tensor,
+                bias: torch.Tensor,
+                capacity: Optional[int] = None) -> torch.Tensor:
+    """Classification unit (paper Sec. V-A) for one sample: (T, ...) ->
+    (n_classes,) (:func:`fc_readout` of the summed spikes)."""
+    t_steps = spikes_in.shape[0]
+    drive = spikes_in.reshape(t_steps, -1).to(weights.dtype).sum(0)
+    return fc_readout(drive, weights, bias, t_steps, capacity)
+
+
 def run_fc_head_batched(spikes_in: torch.Tensor, weights: torch.Tensor,
                         bias: torch.Tensor,
                         capacity: Optional[int] = None) -> torch.Tensor:
-    """Classification unit over a batch: (B, T, ...) -> (B, n_classes).
-    Integrate-only: drive @ W + T * b (:func:`head_product`)."""
-    if capacity is not None:
-        raise NotImplementedError(NOT_PORTED["fc_capacity"])
+    """Classification unit over a batch: (B, T, ...) -> (B, n_classes)
+    (:func:`fc_readout` of each sample's summed spikes)."""
     b_sz, t_steps = spikes_in.shape[:2]
     drive = spikes_in.reshape(b_sz, t_steps, -1).to(weights.dtype).sum(1)
-    return head_product(drive, weights) + t_steps * bias
+    return fc_readout(drive, weights, bias, t_steps, capacity)
 
 
 def head_product(drive: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:

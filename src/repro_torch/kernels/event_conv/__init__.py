@@ -1,2 +1,2 @@
-"""Batched event-conv kernels: ``kernel`` (CUDA wrappers), ``ref``
+"""Event-conv kernels (batched and single-queue): ``kernel`` (CUDA wrappers), ``ref``
 (plain versions), ``ops`` (public wrapper and sizing rules)."""

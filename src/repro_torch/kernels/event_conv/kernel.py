@@ -1,6 +1,7 @@
-"""Wrappers of the batched event-conv CUDA kernels:
-``kernels/csrc/event_conv.cu`` (they replace ``event_conv_pallas_batched``
-and ``event_conv_pallas_interlaced_batched``) and
+"""Wrappers of the event-conv CUDA kernels: ``kernels/csrc/event_conv.cu``
+(the batched units replace ``event_conv_pallas_batched`` and
+``event_conv_pallas_interlaced_batched``; the single-queue units replace
+``event_conv_pallas`` and ``event_conv_pallas_interlaced``) and
 ``kernels/csrc/event_conv_banked.cu`` (the counterpart of the jnp
 ``apply_banked_columns_fused``, the conv unit of the banked and
 fused-handoff variants).
@@ -16,6 +17,7 @@ returned.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -23,7 +25,8 @@ import torch
 from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
 
-from .ref import (event_conv_ref_banked, event_conv_ref_batched,
+from .ref import (event_conv_ref, event_conv_ref_banked,
+                  event_conv_ref_batched, event_conv_ref_interlaced,
                   event_conv_ref_interlaced_batched)
 
 #: shared memory one CTA may use on Hopper (227 KB), less a margin for
@@ -42,8 +45,14 @@ def _lib():
         lib.event_conv_seq_batched.restype = _I
         lib.event_conv_interlaced_batched.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_interlaced_batched.restype = _I
-        lib.event_conv_smem_bytes.argtypes = [_I] * 8
-        lib.event_conv_smem_bytes.restype = ctypes.c_size_t
+        lib.event_conv_seq_single.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+        lib.event_conv_seq_single.restype = _I
+        lib.event_conv_interlaced_single.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+        lib.event_conv_interlaced_single.restype = _I
+        for helper in ("event_conv_smem_bytes",
+                       "event_conv_single_smem_bytes"):
+            getattr(lib, helper).argtypes = [_I] * 8
+            getattr(lib, helper).restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -57,19 +66,26 @@ def _banked_lib():
     return lib
 
 
-def _check(vm_padded, coords, valid, kernel, out, event_par: int) -> None:
-    if vm_padded.ndim != 4:
-        raise ValueError(f"vm tiles must be (Q, Hp, Wp, C), got shape "
-                         f"{tuple(vm_padded.shape)}")
+def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
+           single: bool = False) -> None:
+    """Shapes and dtypes of Q queues on Q tiles, or (``single``) of one
+    queue (E, 2) on one tile (Hp, Wp, C)."""
+    if vm_padded.ndim != (3 if single else 4):
+        want = "vm tile must be (Hp, Wp, C)" if single else \
+            "vm tiles must be (Q, Hp, Wp, C)"
+        raise ValueError(f"{want}, got shape {tuple(vm_padded.shape)}")
     if vm_padded.dtype not in runtime.DTYPE_CODES:
         raise ValueError(f"unsupported vm dtype {vm_padded.dtype}; expected "
                          f"float32, int16 or int8")
-    q, hp, wp, c = vm_padded.shape
-    if coords.ndim != 3 or coords.shape[-1] != 2 or coords.shape[0] != q:
+    hp, wp, c = vm_padded.shape[-3:]
+    if single and (coords.ndim != 2 or coords.shape[-1] != 2):
+        raise ValueError(f"coords must be (E, 2), got {tuple(coords.shape)}")
+    if not single and (coords.ndim != 3 or coords.shape[-1] != 2
+                       or coords.shape[0] != vm_padded.shape[0]):
         raise ValueError(
-            f"queue count mismatch: vm has {q} tiles, coords describe "
-            f"{coords.shape[0] if coords.ndim else 0} queues (coords must be "
-            f"(Q, E, 2), got {tuple(coords.shape)})")
+            f"queue count mismatch: vm has {vm_padded.shape[0]} tiles, "
+            f"coords describe {coords.shape[0] if coords.ndim else 0} queues "
+            f"(coords must be (Q, E, 2), got {tuple(coords.shape)})")
     if coords.dtype != torch.int32:
         raise ValueError(f"coords must be int32, got {coords.dtype}")
     if valid.shape != coords.shape[:-1]:
@@ -87,11 +103,11 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int) -> None:
     if kh % 2 == 0 or kw % 2 == 0 or hp < kh or wp < kw:
         raise ValueError(f"kernel window ({kh}, {kw}) must be odd and fit "
                          f"the halo-padded tile ({hp}, {wp})")
-    e = coords.shape[1]
+    e = coords.shape[-2]
     if event_par > 1 and e % event_par:
         raise ValueError(
             f"event stream length E={e} must be a multiple of event_par="
-            f"{event_par}: go through ops.event_conv_batched or "
+            f"{event_par}: go through ops.event_conv(_batched) or "
             f"aeq.segment_pad, which pad the queues for you")
     if out is not None and (out.shape != vm_padded.shape
                             or out.dtype != vm_padded.dtype
@@ -99,32 +115,60 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int) -> None:
         raise ValueError("out must match vm in shape, dtype and device")
 
 
-def _launch(entry: str, vm_padded, coords, valid, kernel, out, event_par):
+@lru_cache(maxsize=256)
+def _smem_bytes(helper: str, *shape: int) -> int:
+    """Dynamic shared memory of one CTA, from the library's own layout
+    (cached: the scheduler launches the same shapes over and over)."""
+    return getattr(_lib(), helper)(*shape)
+
+
+def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
+            single: bool):
+    """Launch a queue conv unit: the batched entry on (Q, Hp, Wp, C)
+    tiles, or (``single``) the single-queue entry on one (Hp, Wp, C) tile,
+    a grid over channel slices."""
     for name, t in (("vm", vm_padded), ("coords", coords), ("valid", valid),
                     ("kernel", kernel), ("out", out)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    q, hp, wp, c = vm_padded.shape
-    e = coords.shape[1]
+    hp, wp, c = vm_padded.shape[-3:]
+    e = coords.shape[-2]
     kh, kw = kernel.shape[:2]
-    lib = _lib()
     item = vm_padded.element_size()
-    smem = lib.event_conv_smem_bytes(e, hp, wp, c, kh, kw, event_par, item)
+    unit = "event_conv_interlaced" if event_par > 1 else "event_conv_seq"
+    if single:
+        entry = counter = unit + "_single"
+        helper, held = ("event_conv_single_smem_bytes",
+                        "one channel slice of the tile")
+    else:
+        entry, counter = unit + "_batched", unit
+        helper, held = ("event_conv_smem_bytes",
+                        f"one queue's tile ({hp}x{wp}x{c} x {item} B)")
+    smem = _smem_bytes(helper, e, hp, wp, c, kh, kw, event_par, item)
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"one queue's tile ({hp}x{wp}x{c} x {item} B) plus its {e}-slot "
-            f"queue needs {smem} B of shared memory, over the "
-            f"{_SMEM_LIMIT} B a CTA may use: lower the plan's channel_block")
+            f"{held} plus its {e}-slot queue needs {smem} B of shared "
+            f"memory, over the {_SMEM_LIMIT} B a CTA may use: lower the "
+            f"plan's channel_block or capacity")
     args = [vm_padded.data_ptr(), out.data_ptr(), coords.data_ptr(),
-            valid.data_ptr(), kernel.data_ptr(), q, e, hp, wp, c, kh, kw]
+            valid.data_ptr(), kernel.data_ptr()]
+    args += [e] if single else [vm_padded.shape[0], e]
+    args += [hp, wp, c, kh, kw]
     if event_par > 1:
         args.append(event_par)
     args += [runtime.DTYPE_CODES[vm_padded.dtype], runtime.stream_ptr(vm_padded)]
+    lib = _lib()
     status = getattr(lib, entry)(*args)
-    runtime.LAUNCHES["event_conv_interlaced" if event_par > 1
-                     else "event_conv_seq"] += 1
+    runtime.LAUNCHES[counter] += 1
     runtime.check(lib, status, entry)
     return out
+
+
+def _require_par(event_par: int, sequential: str) -> None:
+    if event_par < 2:
+        raise ValueError(
+            f"event_par={event_par}: the interlaced kernel needs >= 2 events "
+            f"per group (use {sequential} for the sequential schedule)")
 
 
 def event_conv_cuda_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
@@ -144,8 +188,7 @@ def event_conv_cuda_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(vm_padded)
-    return _launch("event_conv_seq_batched", vm_padded, coords, valid,
-                   kernel, out, 1)
+    return _launch(vm_padded, coords, valid, kernel, out, 1, single=False)
 
 
 def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
@@ -163,11 +206,7 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
     is column-homogeneous; a mixed group runs in queue order.  Bit-exact
     vs the sequential kernel on any queue without repeated coordinates.
     """
-    if event_par < 2:
-        raise ValueError(
-            f"event_par={event_par}: the interlaced kernel needs >= 2 events "
-            f"per group (use event_conv_cuda_batched for the sequential "
-            f"schedule)")
+    _require_par(event_par, "event_conv_cuda_batched")
     _check(vm_padded, coords, valid, kernel, out, event_par)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref_interlaced_batched(vm_padded, coords, valid,
@@ -175,8 +214,52 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty_like(vm_padded)
-    return _launch("event_conv_interlaced_batched", vm_padded, coords, valid,
-                   kernel, out, event_par)
+    return _launch(vm_padded, coords, valid, kernel, out, event_par,
+                   single=False)
+
+
+def event_conv_cuda(vm_padded: torch.Tensor, coords: torch.Tensor,
+                    valid: torch.Tensor, kernel: torch.Tensor, *,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Apply one event queue, in queue order, to one halo-padded tile.
+
+    vm_padded: (Hp, Wp, C) float32/int16/int8; coords (E, 2) int32 in
+    unpadded space; valid (E,) bool; kernel (kh, kw, C) unrotated, in
+    vm's dtype.  The kernel spreads the tile's channels over CTAs, each
+    walking the whole queue.  Returns the updated tile (``out`` when
+    given; ``out=vm_padded`` updates in place).
+    """
+    _check(vm_padded, coords, valid, kernel, out, 1, single=True)
+    if not runtime.use_kernel(vm_padded, coords, valid, kernel):
+        res = event_conv_ref(vm_padded, coords, valid, kernel)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(vm_padded)
+    return _launch(vm_padded, coords, valid, kernel, out, 1, single=True)
+
+
+def event_conv_cuda_interlaced(vm_padded: torch.Tensor, coords: torch.Tensor,
+                               valid: torch.Tensor, kernel: torch.Tensor, *,
+                               event_par: int,
+                               out: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Interlace-parallel :func:`event_conv_cuda`: ``event_par``
+    same-column events per step, with E a multiple of ``event_par``.
+
+    Feed it segment-padded queues (``aeq.segment_pad``); a mixed group
+    runs in queue order, and repeated coordinates within a
+    column-homogeneous group land once, as in the Pallas kernel.
+    """
+    _require_par(event_par, "event_conv_cuda")
+    _check(vm_padded, coords, valid, kernel, out, event_par, single=True)
+    if not runtime.use_kernel(vm_padded, coords, valid, kernel):
+        res = event_conv_ref_interlaced(vm_padded, coords, valid, kernel,
+                                        event_par=event_par)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(vm_padded)
+    return _launch(vm_padded, coords, valid, kernel, out, event_par,
+                   single=True)
 
 
 def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,

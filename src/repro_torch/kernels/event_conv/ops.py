@@ -1,9 +1,10 @@
-"""Public wrapper around the batched event-conv kernels, plus the
-event-pipeline sizing rules (port of ``repro.kernels.event_conv.ops``).
+"""Public wrappers around the event-conv kernels, plus the event-pipeline
+sizing rules (port of ``repro.kernels.event_conv.ops``).
 
-``event_conv_batched`` halo-pads, segment-pads for ``event_par > 1``,
-pads the event axis to ``block_e``, validates shapes with actionable
-messages before any launch, and crops back.
+``event_conv`` (one queue) and ``event_conv_batched`` (a stack of
+queues) halo-pad, segment-pad for ``event_par > 1``, pad the event axis
+to ``block_e``, validate shapes with actionable messages before any
+launch, and crop back.
 
 The sizing rules keep JAX's formulas with one change of residency model.
 The TPU plan modelled ``batch_tile`` tiles resident against 16 MiB of
@@ -20,12 +21,14 @@ import math
 
 import torch
 
-from repro_torch.core.aeq import BatchedEventQueue, segment_pad
+from repro_torch.core.aeq import BatchedEventQueue, EventQueue, segment_pad
+from repro_torch.core.event_conv import crop_vm, pad_vm
 from repro_torch.core.geometry import GEOM_3X3, ConvGeometry
 
-from .kernel import (SMEM_PER_BLOCK, event_conv_cuda_batched,
+from .kernel import (SMEM_PER_BLOCK, event_conv_cuda, event_conv_cuda_batched,
+                     event_conv_cuda_interlaced,
                      event_conv_cuda_interlaced_batched)
-from .ref import event_conv_ref_batched
+from .ref import event_conv_ref, event_conv_ref_batched
 
 # Bytes one queue slot streams: (i, j) int32 coords + a valid byte.
 EVENT_BYTES = 2 * 4 + 1
@@ -121,6 +124,74 @@ def validate_event_shapes(coords: torch.Tensor, valid: torch.Tensor,
         geometry.require_event_compatible("event_conv")
 
 
+def _pad_events(queue: EventQueue | BatchedEventQueue, block_e: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The queue's coords and valid bits, the event axis padded with
+    invalid (0, 0) slots to a multiple of ``block_e``; contiguous."""
+    pad = -queue.capacity % block_e
+    coords = torch.nn.functional.pad(queue.coords, (0, 0, 0, pad))
+    valid = torch.nn.functional.pad(queue.valid, (0, pad))
+    return coords.contiguous(), valid.contiguous()
+
+
+def _size_block_e(block_e: int | None, depth: int, tile: tuple[int, ...],
+                  vm_bytes: int, event_par: int) -> int:
+    """``block_e``, or (``None``) the autotuned block for a queue of
+    ``depth`` slots and a resident ``tile``."""
+    if block_e is not None:
+        return block_e
+    block_e = autotune_block_e(depth, tile, vm_bytes=vm_bytes)
+    if event_par > 1:
+        block_e = snap_block_e_for_par(depth, block_e, event_par)
+    return block_e
+
+
+def event_conv(
+    vm: torch.Tensor,
+    queue: EventQueue,
+    kernel: torch.Tensor,
+    *,
+    block_e: int | None = 128,
+    use_kernel: bool = True,
+    event_par: int = 1,
+) -> torch.Tensor:
+    """Event-driven conv accumulation onto one unpadded (H, W, C) tile, or
+    an (H, W) map with an (kh, kw) kernel.
+
+    The (kh, kw, C) kernel fixes the geometry.  The wrapper halo-pads,
+    pads the event axis to ``block_e`` (``None`` autotunes it), and crops
+    back.  ``event_par > 1`` segment-pads the queue and dispatches the
+    interlaced kernel; ``use_kernel=False`` runs the plain sequential
+    replay.
+    """
+    if vm.ndim == 2:
+        out = event_conv(vm[:, :, None], queue, kernel[:, :, None],
+                         block_e=block_e, use_kernel=use_kernel,
+                         event_par=event_par)
+        return out[:, :, 0]
+    geom = ConvGeometry.from_kernel_shape(kernel.shape)
+    hh, hw = geom.halo
+    validate_event_shapes(queue.coords, queue.valid, block_e=block_e,
+                          event_par=event_par, geometry=geom)
+    if event_par > 1:
+        queue = segment_pad(queue, event_par, geom)
+    block_e = _size_block_e(
+        block_e, queue.capacity,
+        (vm.shape[0] + 2 * hh, vm.shape[1] + 2 * hw) + tuple(vm.shape[2:]),
+        vm.element_size(), event_par)
+    coords, valid = _pad_events(queue, block_e)
+    vm_p = pad_vm(vm, geom)
+    k = kernel.to(vm.dtype)
+    if use_kernel and event_par > 1:
+        out = event_conv_cuda_interlaced(vm_p, coords, valid, k,
+                                         event_par=event_par, out=vm_p)
+    elif use_kernel:
+        out = event_conv_cuda(vm_p, coords, valid, k, out=vm_p)
+    else:
+        out = event_conv_ref(vm_p, coords, valid, k)
+    return crop_vm(out, geom)
+
+
 def event_conv_batched(
     vm: torch.Tensor,
     queues: BatchedEventQueue,
@@ -149,27 +220,20 @@ def event_conv_batched(
                           event_par=event_par, batched=True, geometry=geom)
     if event_par > 1:
         queues = segment_pad(queues, event_par, geom)
-    if block_e is None:
-        block_e = autotune_block_e(
-            queues.capacity,
-            (vm.shape[1] + 2 * hh, vm.shape[2] + 2 * hw) + tuple(vm.shape[3:]),
-            vm_bytes=vm.element_size())
-        if event_par > 1:
-            block_e = snap_block_e_for_par(queues.capacity, block_e, event_par)
-    pad = -queues.capacity % block_e
-    coords = torch.nn.functional.pad(queues.coords, (0, 0, 0, pad))
-    valid = torch.nn.functional.pad(queues.valid, (0, pad))
+    block_e = _size_block_e(
+        block_e, queues.capacity,
+        (vm.shape[1] + 2 * hh, vm.shape[2] + 2 * hw) + tuple(vm.shape[3:]),
+        vm.element_size(), event_par)
+    coords, valid = _pad_events(queues, block_e)
     q, h, w = vm.shape[:3]
     vm_p = vm.new_zeros((q, h + 2 * hh, w + 2 * hw) + tuple(vm.shape[3:]))
     vm_p[:, hh:hh + h, hw:hw + w] = vm
     k = kernel.to(vm.dtype)
     if use_kernel and event_par > 1:
-        out = event_conv_cuda_interlaced_batched(vm_p, coords.contiguous(),
-                                                 valid.contiguous(), k,
+        out = event_conv_cuda_interlaced_batched(vm_p, coords, valid, k,
                                                  event_par=event_par)
     elif use_kernel:
-        out = event_conv_cuda_batched(vm_p, coords.contiguous(),
-                                      valid.contiguous(), k)
+        out = event_conv_cuda_batched(vm_p, coords, valid, k)
     else:
         out = event_conv_ref_batched(vm_p, coords, valid, k)
     return out[:, hh:hh + h, hw:hw + w]

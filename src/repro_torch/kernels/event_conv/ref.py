@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the batched event-conv kernels.
+"""Plain PyTorch versions of the event-conv kernels.
 
 Semantics: for every valid event (i, j) of a queue, add the
 180-degree-rotated (kh, kw, C) kernel into that queue's halo-padded tile
@@ -79,6 +79,16 @@ def event_conv_ref_interlaced_batched(vm_padded: torch.Tensor,
     geom = ConvGeometry.from_kernel_shape(kernel.shape)
     keep = interlaced_keep(coords, valid, event_par, geom)
     return event_conv_ref_batched(vm_padded, coords, keep, kernel)
+
+
+def event_conv_ref_interlaced(vm_padded: torch.Tensor, coords: torch.Tensor,
+                              valid: torch.Tensor, kernel: torch.Tensor, *,
+                              event_par: int) -> torch.Tensor:
+    """One queue (the oracle of ``event_conv_cuda_interlaced``): vm (Hp,
+    Wp, C), coords (E, 2), valid (E,)."""
+    return event_conv_ref_interlaced_batched(
+        vm_padded[None], coords[None], valid[None], kernel,
+        event_par=event_par)[0]
 
 
 def event_conv_ref_banked(vm_padded: torch.Tensor, masks: torch.Tensor,

@@ -38,7 +38,8 @@ SOURCES = ("event_conv", "event_conv_banked", "threshold_pool")
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES = {"event_conv_seq": 0, "event_conv_interlaced": 0,
             "event_conv_banked": 0, "threshold_pool": 0,
-            "threshold_pool_emit": 0}
+            "threshold_pool_emit": 0, "event_conv_seq_single": 0,
+            "event_conv_interlaced_single": 0}
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}

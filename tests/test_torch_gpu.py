@@ -12,11 +12,11 @@ from repro_torch.core.event_conv import tap_matrix
 from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
 from repro_torch.kernels.event_conv.kernel import (
-    event_conv_cuda_banked, event_conv_cuda_batched,
-    event_conv_cuda_interlaced_batched)
+    event_conv_cuda, event_conv_cuda_banked, event_conv_cuda_batched,
+    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
 from repro_torch.kernels.event_conv.ref import (
-    event_conv_ref_banked, event_conv_ref_batched,
-    event_conv_ref_interlaced_batched)
+    event_conv_ref, event_conv_ref_banked, event_conv_ref_batched,
+    event_conv_ref_interlaced, event_conv_ref_interlaced_batched)
 from repro_torch.kernels.threshold_pool.kernel import (
     threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
@@ -68,7 +68,9 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "event_conv_interlaced": 0,
                                 "event_conv_banked": 0,
                                 "threshold_pool": 0,
-                                "threshold_pool_emit": 0}
+                                "threshold_pool_emit": 0,
+                                "event_conv_seq_single": 0,
+                                "event_conv_interlaced_single": 0}
     # the banked conv and the emit kernel count only their own launches
     ho = taeq.build_fused_handoff(torch.ones((2, 1, 8, 8, 3), dtype=torch.bool,
                                              device=cuda), 64)
@@ -86,7 +88,20 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "event_conv_interlaced": 0,
                                 "event_conv_banked": 1,
                                 "threshold_pool": 0,
-                                "threshold_pool_emit": 1}
+                                "threshold_pool_emit": 1,
+                                "event_conv_seq_single": 0,
+                                "event_conv_interlaced_single": 0}
+    # the single-queue units count only their own launches
+    qp = taeq.segment_pad(q, 4)
+    event_conv_ref(vm[0], q.coords[0], q.valid[0], kern)
+    event_conv_cuda(vm[0], q.coords[0], q.valid[0], kern, out=vm[0])
+    event_conv_ref_interlaced(vm[1], qp.coords[1], qp.valid[1], kern,
+                              event_par=4)
+    event_conv_cuda_interlaced(vm[1], qp.coords[1], qp.valid[1], kern,
+                               event_par=4, out=vm[1])
+    assert (runtime.LAUNCHES["event_conv_seq_single"],
+            runtime.LAUNCHES["event_conv_interlaced_single"],
+            runtime.LAUNCHES["event_conv_seq"]) == (1, 1, 1)
 
 
 @pytest.mark.gpu
@@ -116,7 +131,7 @@ def test_banked_and_emit_kernels_equal_plain_versions(cuda, dtype, k):
         for cap in (16, 256):
             a, b = vm.clone(), vm.clone()
             ka = threshold_pool_cuda_emit(a, bias, fired, v_t=v_t, pool=pool,
-                                          halo=(1, 1), emit_capacity=cap,
+                                          halo=(hh, hh), emit_capacity=cap,
                                           emit_geometry=geom)
             # a second launch into the same buffers, filled with stale bits
             for x in ka:
@@ -124,14 +139,47 @@ def test_banked_and_emit_kernels_equal_plain_versions(cuda, dtype, k):
                     x.fill_(1)
             a2 = vm.clone()
             ka2 = threshold_pool_cuda_emit(
-                a2, bias, fired, v_t=v_t, pool=pool, halo=(1, 1),
+                a2, bias, fired, v_t=v_t, pool=pool, halo=(hh, hh),
                 emit_capacity=cap, emit_geometry=geom, fired_out=ka[0],
                 pooled_out=ka[1], masks_out=ka[2], count_out=ka[3],
                 seg_counts_out=ka[4])
             kb = threshold_pool_tile_ref(b, bias, fired, v_t=v_t, pool=pool,
-                                         halo=(1, 1), emit_capacity=cap,
+                                         halo=(hh, hh), emit_capacity=cap,
                                          emit_geometry=geom)
             torch.cuda.synchronize()
             assert torch.equal(a, b) and torch.equal(a2, b)
             for x, y in zip(ka2, kb):
                 assert (x is None and y is None) or torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_single_queue_kernels_equal_plain_versions(cuda, dtype, k):
+    """event_conv_seq_single and event_conv_interlaced_single (grid over
+    channel slices) at the FULL single-sample tiles: truncated and
+    segment-padded queues, an unpadded interlaced queue (mixed groups),
+    and a 30x30x32 tile that spans several CTAs."""
+    g = torch.Generator().manual_seed(10 + k)
+    geom = ConvGeometry(k, k)
+    hh = k // 2
+    big = {torch.float32: 1.0, torch.int16: 9000.0, torch.int8: 40.0}[dtype]
+    for c in (8, 32):
+        fm = torch.rand((28, 28), generator=g) < 0.6
+        q = taeq.build_aeq(fm.to(cuda), 256, geometry=geom)
+        vm = (torch.randn((28 + 2 * hh, 28 + 2 * hh, c), generator=g)
+              * big).to(dtype).to(cuda)
+        kern = (torch.randn((k, k, c), generator=g) * big).to(dtype).to(cuda)
+        got = event_conv_cuda(vm, q.coords, q.valid, kern)
+        assert torch.equal(got, event_conv_ref(vm, q.coords, q.valid, kern))
+        for ep, qq in ((8, taeq.segment_pad(q, 8, geom)),
+                       (4, taeq.segment_pad(q, 4, geom)), (8, q)):
+            got = event_conv_cuda_interlaced(vm, qq.coords, qq.valid, kern,
+                                             event_par=ep)
+            assert torch.equal(got, event_conv_ref_interlaced(
+                vm, qq.coords, qq.valid, kern, event_par=ep))
+        # in place, as the scheduler calls it
+        want = event_conv_ref(vm, q.coords, q.valid, kern)
+        event_conv_cuda(vm, q.coords, q.valid, kern, out=vm)
+        torch.cuda.synchronize()
+        assert torch.equal(vm, want)

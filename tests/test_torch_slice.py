@@ -144,7 +144,8 @@ def test_init_params_shapes_match_jax_and_seed():
 
 def test_unported_options_raise():
     """The pinned fused/banked variants run (and equal the default plan);
-    fc_capacity, StreamState input and the measured tuner still raise."""
+    fc_capacity runs, and at a covering capacity equals the dense head;
+    StreamState input and the measured tuner still raise."""
     cfg = tpaper.SMOKE
     params = tc.init_params(cfg, device="cpu")
     spikes = torch.rand((1, 4, 12, 12, 1),
@@ -158,8 +159,10 @@ def test_unported_options_raise():
         assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tplan(cfg, tune="measured")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.snn_apply_batched(params, spikes, cfg, tplan(cfg, fc_capacity=8))
+    # D = 4*4*8 head inputs: a queue of D covers every nonzero drive entry
+    got = tc.snn_apply_batched(params, spikes, cfg, tplan(cfg, fc_capacity=128),
+                               collect_stats=False)
+    assert torch.equal(got, want)
     state = tc.init_state(params, cfg, tplan(cfg), 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.snn_step_chunk(params, state, object(), cfg, tplan(cfg))
@@ -186,9 +189,16 @@ def test_fc_head_batched_matches_jax():
     got = thead(torch.from_numpy(spikes), torch.from_numpy(w),
                 torch.from_numpy(b))
     np.testing.assert_allclose(np.asarray(want), got.numpy(), **LOGIT_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thead(torch.from_numpy(spikes), torch.from_numpy(w),
-              torch.from_numpy(b), capacity=4)
+    # the sparse head: a truncating queue over tied counts, and a covering
+    # one, which equals the dense head
+    for cap in (4, 20):
+        want = jhead(jnp.asarray(spikes), jnp.asarray(w), jnp.asarray(b),
+                     capacity=cap)
+        sparse = thead(torch.from_numpy(spikes), torch.from_numpy(w),
+                       torch.from_numpy(b), capacity=cap)
+        np.testing.assert_allclose(np.asarray(want), sparse.numpy(),
+                                   **LOGIT_TOL)
+    assert torch.equal(sparse, got)
 
 
 def test_fc_head_leaves_global_matmul_flags():
