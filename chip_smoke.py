@@ -17,7 +17,10 @@ Phases (any failure exits non-zero before the result line):
    carriers of 32 input channels; the single-queue conv units at the FULL
    single-sample tiles (k in {1, 3, 5}, f32/i16/i8, truncated,
    segment-padded and unpadded queues, repeated coordinates, a 115 KB
-   tile over several CTAs, in place);
+   tile over several CTAs, in place); the sequential conv unit over every
+   input channel of a (block, t) in one launch at the FULL shapes (conv0
+   1, conv1 and conv2 32 input channels; B=8 and one sample) and with 4
+   input channels for k in {1, 3, 5} on 3 tiles and on one;
 4. the main paths: ``snn_apply_batched``'s steps (``init_state``,
    ``snn_step_chunk``, ``snn_readout``) on ``csnn_paper.FULL`` with B=8
    under the serve plan (interlaced), with ``event_par=1``, with every
@@ -35,16 +38,20 @@ Phases (any failure exits non-zero before the result line):
    (argmax);
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch every
-   kernel of its path (``PATH_KERNELS``) and no other;
+   kernel of its path (``PATH_KERNELS``) and no other, and the event_par=1
+   runs exactly one sequential conv and one threshold launch per (channel
+   block, time step);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` and ``python -m repro_torch.launch.quickstart`` and
    print their lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
-   bound, its plain version and a library yardstick; then end-to-end
+   bound, its plain version and a library yardstick (the sequential unit
+   per (block 0, t) launch at conv1 over all 32 input channels, beside
+   ``F.conv2d`` of the same 32 channels' kept events); then end-to-end
    samples/s of every path and a ``torch.profiler`` breakdown of one
    forward of the serve, event_par=1 and fused plans and of one
-   single-sample forward.
+   single-sample forward under the serve plan and event_par=1.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -253,6 +260,7 @@ def check_kernels(dev) -> dict:
                     same(f"threshold_pool pooled {tag}", pk, pr)
     check_banked_and_emit(g, dev, same)
     check_single(g, dev, same)
+    check_seq_gather(g, dev, same)
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
@@ -379,6 +387,64 @@ def check_single(g, dev, same) -> None:
          event_conv_ref_interlaced(vm, coords, valid, kern, event_par=4))
 
 
+def check_seq_gather(g, dev, same) -> None:
+    """Phase 3, slice 4: the sequential conv unit over every input
+    channel's queues of one (block, t) in one launch, batched
+    (``event_conv_seq``) and on one tile (``event_conv_seq_single``): the
+    FULL shapes (conv0: 1 input channel, 28x28 maps, 30x30x8 tiles,
+    capacity 256; conv1: the same with 32; conv2: 32 input channels, 10x10
+    maps, 12x12x5 tiles, capacity 100) at B=8 and one sample, f32/i16/i8
+    with int weights that clip mid-queue; 4 input channels for k in {1, 3,
+    5} on 3 tiles and on one; fresh and in place; repeated coordinates."""
+    import torch
+
+    from repro_torch.core.aeq import build_aeq_batched
+    from repro_torch.core.geometry import ConvGeometry
+    from repro_torch.kernels.event_conv.kernel import (
+        event_conv_cuda, event_conv_cuda_batched)
+    from repro_torch.kernels.event_conv.ref import (event_conv_ref,
+                                                    event_conv_ref_batched)
+
+    def check(tag, vm, coords, valid, kern):
+        want = event_conv_ref_batched(vm, coords, valid, kern)
+        same(f"event_conv_seq {tag}",
+             event_conv_cuda_batched(vm, coords, valid, kern), want)
+        got = vm.clone()
+        event_conv_cuda_batched(got, coords, valid, kern, out=got)
+        same(f"event_conv_seq in place {tag}", got, want)
+        c0, v0 = coords[:, 0].contiguous(), valid[:, 0].contiguous()
+        want = event_conv_ref(vm[0], c0, v0, kern)
+        same(f"event_conv_seq_single {tag}",
+             event_conv_cuda(vm[0], c0, v0, kern), want)
+        got = vm[0].clone()
+        event_conv_cuda(got, c0, v0, kern, out=got)
+        same(f"event_conv_seq_single in place {tag}", got, want)
+
+    # (name, k, C_in, map side, channels, capacity, tiles, density)
+    cases = [("conv0", 3, 1, 28, 8, 256, B, 0.6),
+             ("conv1", 3, 32, 28, 8, 256, B, 0.45),
+             ("conv2", 3, 32, 10, 5, 100, B, 0.9)]
+    cases += [(f"k={k}", k, 4, 28, 8, 256, q, 0.6) for k in (1, 3, 5)
+              for q in (3, 1)]
+    for name, k, c_in, side, c, cap, q, density in cases:
+        geom, hh = ConvGeometry(k, k), k // 2
+        for dtype in (torch.float32, torch.int16, torch.int8):
+            fm = torch.rand((c_in, q, side, side), generator=g) < density
+            qs = build_aeq_batched(fm.to(dev), cap, geometry=geom)
+            hp = side + 2 * hh
+            vm = rand_tile(g, (q, hp, hp, c), dtype, dev)
+            kern = rand_kernel(g, (c_in, k, k, c), dtype, dev)
+            check(f"{name} C_in={c_in} Q={q} {hp}x{hp}x{c} {dtype}", vm,
+                  qs.coords, qs.valid, kern)
+    # repeated coordinates in every input channel's queue
+    coords = torch.tensor([[[[4, 4], [4, 4], [7, 4], [4, 4]]] * B] * 2,
+                          dtype=torch.int32, device=dev)
+    valid = torch.tensor([[[1, 1, 1, 0]] * B, [[1, 1, 1, 1]] * B],
+                         dtype=torch.bool, device=dev)
+    check("repeated coords", rand_tile(g, (B, 30, 30, 8), torch.float32, dev),
+          coords, valid, rand_kernel(g, (2, 3, 3, 8), torch.float32, dev))
+
+
 # --------------------------------------------------------------- phase 4
 def forward(params, spikes, cfg, plan):
     """``snn_apply_batched``'s steps in one chunk, keeping the state."""
@@ -451,11 +517,21 @@ PATH_KERNELS = {
     "single, banked-cuda": ("event_conv_banked", "threshold_pool"),
 }
 BATCHED_PATHS = tuple(p for p in PATH_KERNELS if not p.startswith("single"))
+# the event_par=1 runs launch their sequential conv unit once per (channel
+# block, time step) over all input channels, as the threshold unit
+SEQ_PATHS = ("event_par=1 (sequential)", "single, event_par=1 (sequential)")
 
 
-def counted(path, fn, launches):
+def per_step_launches(cfg, plan) -> int:
+    """(channel block, time step) pairs of one forward's conv layers."""
+    return cfg.t_steps * sum(lp.c_out // lp.channel_block
+                             for lp in plan.layers)
+
+
+def counted(path, fn, launches, exact=None):
     """Run ``fn`` from launch counters set to 0 and return its result;
-    fail unless it launched every kernel of ``path`` and no other."""
+    fail unless it launched every kernel of ``path`` and no other, each
+    ``exact`` times when that is given."""
     import torch
 
     from repro_torch.kernels import runtime
@@ -470,6 +546,9 @@ def counted(path, fn, launches):
             fail(f"kernel {k} was never launched on the {path} path")
         if k not in kernels and n:
             fail(f"kernel {k} was launched {n}x on the {path} path")
+        if k in kernels and exact is not None and n != exact:
+            fail(f"kernel {k} was launched {n}x on the {path} path, not "
+                 f"once per (channel block, time step): {exact}x")
         if k in kernels:
             launches.setdefault(k, n)
     return out
@@ -503,8 +582,10 @@ def main_path(dev, cfg, wcfg):
     print(f"serve plan:\n{plans['serve plan (interlaced)']}")
     got, launches, cpu = {}, {}, {}
     for path in BATCHED_PATHS:
+        exact = (per_step_launches(cfg, plans[path]) if path in SEQ_PATHS
+                 else None)
         got[path] = counted(path, lambda p=plans[path]: forward(
-            params, spikes, cfg, p), launches)
+            params, spikes, cfg, p), launches, exact)
     for path, plan in plans.items():
         cpu[path] = forward(to_cpu(params), spikes.cpu(), cfg, plan)
         hold(f"csnn_paper.FULL {path}", got[path], cpu[path])
@@ -600,8 +681,9 @@ def single_path(dev, cfg, params, plans, launches):
     cparams, cspikes = to_cpu(params), spikes.cpu()
     for path in BATCHED_PATHS:
         plan, name = plans[path], f"single, {path}"
+        exact = per_step_launches(cfg, plan) if name in SEQ_PATHS else None
         runs = [counted(name, lambda: snn_apply(params, spikes[0], cfg, plan),
-                        launches)]
+                        launches, exact)]
         runs += [snn_apply(params, spikes[b], cfg, plan) for b in range(1, B)]
         logits = torch.stack([r[0] for r in runs]).cpu()
         blogits, bstats = snn_apply_batched(params, spikes, cfg, plan)
@@ -663,9 +745,11 @@ def truncated(runs, plan) -> int:
 
 def timing(dev, cfg, params, imgs, plans, card):
     """Phase 7: each kernel at the conv1 shapes of this run's data (CUDA
-    events, mean per launch over every (t, c_in) launch of channel block
-    0), its plain version on the card, its bound and a library yardstick;
-    then end-to-end samples/s.  Returns the kernel records."""
+    events, mean per launch over the launches of channel block 0: one per
+    t over all input channels for the sequential unit, one per (t, c_in)
+    for the interlaced one), its plain version on the card, its bound and
+    a library yardstick; then end-to-end samples/s.  Returns the kernel
+    records."""
     import torch
 
     from repro_torch.core.aeq import build_aeq_batched, segment_pad
@@ -697,9 +781,11 @@ def timing(dev, cfg, params, imgs, plans, card):
     kern = params["conv1"]["w"][:, :, :, :cb].permute(2, 0, 1, 3).contiguous()
     vm = torch.zeros((B, hp, wp, cb), device=dev)
 
-    def slabs(qs):
+    def slabs(qs, per_cin):
         c = qs.coords.permute(0, 2, 1, 3, 4).contiguous()
         v = qs.valid.permute(0, 2, 1, 3).contiguous()
+        if not per_cin:  # (C_in, B, cap[, 2]) per t; kernel (C_in, kh, kw, cb)
+            return [(c[t], v[t], kern) for t in range(t_steps)]
         return [(c[t, ci], v[t, ci], kern[ci]) for t in range(t_steps)
                 for ci in range(c_in)]
 
@@ -709,7 +795,7 @@ def timing(dev, cfg, params, imgs, plans, card):
         nbytes = nops = 0
         for c, v, k in slab_list:
             nbytes += 2 * vm.numel() * 4 + c.numel() * 4 + v.numel() + k.numel() * 4
-            nops += int(v.sum()) * k.numel()
+            nops += int(v.sum()) * k.shape[-3:].numel()
         tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
         return (max(tb, to) * 1e3 / len(slab_list),
                 "bytes" if tb >= to else "operations")
@@ -720,7 +806,7 @@ def timing(dev, cfg, params, imgs, plans, card):
                 fn(c, v, k)
         return run
 
-    seq_slabs, int_slabs = slabs(q_seq), slabs(q_int)
+    seq_slabs, int_slabs = slabs(q_seq, False), slabs(q_int, True)
     ep = lp1.event_par
 
     def seq_k(c, v, k):
@@ -738,15 +824,22 @@ def timing(dev, cfg, params, imgs, plans, card):
         vm, c, v, k), seq_slabs), 1) / len(seq_slabs)
     p_int = cuda_time_ms(loop(lambda c, v, k: event_conv_ref_interlaced_batched(
         vm, c, v, k, event_par=ep), int_slabs), 1) / len(int_slabs)
-    # yardstick: fp32 conv2d (TF32 off) of the dense map of the kept events
-    dense = []
-    for c, v, k in seq_slabs:
-        d = torch.zeros((B, h * w), device=dev)
+    # yardsticks: fp32 conv2d (TF32 off) of the dense maps of the kept
+    # events, one input channel (the interlaced unit's launch) and all 32
+    # (the sequential unit's)
+    dense, dense1 = [], []
+    weight = kern.permute(3, 0, 1, 2).contiguous()   # (cb, C_in, kh, kw)
+    for c, v, _ in seq_slabs:
+        d = torch.zeros((c_in, B, h * w), device=dev)
         flat = (c[..., 0].long() * w + c[..., 1].long()).clamp(min=0)
-        d.scatter_add_(1, flat, v.float())
-        dense.append((d.view(B, 1, h, w),
-                      k.permute(2, 0, 1)[:, None].contiguous(), None))
+        d.scatter_add_(2, flat, v.float())
+        d = d.view(c_in, B, h, w).transpose(0, 1).contiguous()
+        dense.append((d, weight, None))
+        dense1.append((d[:, :1].contiguous(), weight[:, :1].contiguous(),
+                       None))
     t_lib = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
+        d, k, padding=lp1.geometry.halo), dense1)) / len(dense1)
+    t_lib32 = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
         d, k, padding=lp1.geometry.halo), dense)) / len(dense)
     b_seq, by_seq = conv_bound(seq_slabs)
     b_int, by_int = conv_bound(int_slabs)
@@ -805,9 +898,9 @@ def timing(dev, cfg, params, imgs, plans, card):
           f"ms/launch, host-bound {h_int:.5f}, plain {p_int:.4f}, bound "
           f"{b_int:.6f} ({by_int}), conv2d {t_lib:.5f} {tag}")
     print(f"timing event_conv_seq (conv1, B={B}, capacity {lp1s.capacity}, "
-          f"f32): device {t_seq:.5f} ms/launch, host-bound {h_seq:.5f}, "
-          f"plain {p_seq:.4f}, bound {b_seq:.6f} ({by_seq}), conv2d "
-          f"{t_lib:.5f} {tag}")
+          f"{c_in} c_in per (block 0, t) launch, f32): device {t_seq:.5f} "
+          f"ms/launch, host-bound {h_seq:.5f}, plain {p_seq:.4f}, bound "
+          f"{b_seq:.6f} ({by_seq}), conv2d {c_in} c_in {t_lib32:.5f} {tag}")
     print(f"timing threshold_pool (conv1, B={B}, {h}x{w}x{cb}, pool "
           f"{lp1.pool}, f32): device {t_thr:.5f} ms/launch, host-bound "
           f"{h_thr:.5f}, plain {p_thr:.4f}, bound {b_thr:.6f} (bytes) {tag}")
@@ -827,7 +920,7 @@ def timing(dev, cfg, params, imgs, plans, card):
              source=src + "event_conv.cu",
              replaces=ref + "event_conv/kernel.py:241", ms=t_seq,
              plain_ms=p_seq, bound_ms=b_seq, bound_by=by_seq,
-             library_ms=t_lib),
+             library_ms=t_lib32),
         dict(name="threshold_pool", route="cuda",
              source=src + "threshold_pool.cu",
              replaces=ref + "threshold_pool/kernel.py:68", ms=t_thr,
@@ -945,11 +1038,12 @@ def timing_fused(dev, cfg, params, spikes, fplan, card) -> list:
 
 def timing_single(dev, cfg, params, plans, spikes, card) -> list:
     """Phase 7, slice 3: the single-queue conv units at conv1 of one
-    sample (image 0 of the single-sample phase; mean per launch over every
-    (t, c_in) launch of channel block 0), against their bound, plain
-    versions and ``F.conv2d`` of one input channel's kept events; then
-    single-sample samples/s under the serve plan and event_par=1.
-    Returns the kernel records."""
+    sample (image 0 of the single-sample phase; mean per launch over the
+    launches of channel block 0: one per t over all input channels for the
+    sequential unit, one per (t, c_in) for the interlaced one), against
+    their bound, plain versions and ``F.conv2d`` of the same input
+    channels' kept events; then single-sample samples/s and a profile
+    under the serve plan and event_par=1.  Returns the kernel records."""
     import torch
 
     from repro_torch.core.aeq import build_aeq_batched, segment_pad
@@ -976,7 +1070,10 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
     vm = torch.zeros((hp, wp, cb), device=dev)
     ep = lp1.event_par
 
-    def slabs(qs):
+    def slabs(qs, per_cin):
+        if not per_cin:  # (C_in, cap[, 2]) per t; kernel (C_in, kh, kw, cb)
+            return [(qs.coords[t], qs.valid[t], kern)
+                    for t in range(t_steps)]
         return [(qs.coords[t, ci], qs.valid[t, ci], kern[ci])
                 for t in range(t_steps) for ci in range(c_in)]
 
@@ -992,12 +1089,12 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
         nbytes = nops = 0
         for c, v, k in slab_list:
             nbytes += 2 * vm.numel() * 4 + c.numel() * 4 + v.numel() + k.numel() * 4
-            nops += int(v.sum()) * k.numel()
+            nops += int(v.sum()) * k.shape[-3:].numel()
         tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
         return (max(tb, to) * 1e3 / len(slab_list),
                 "bytes" if tb >= to else "operations")
 
-    seq_slabs, int_slabs = slabs(q_seq), slabs(q_int)
+    seq_slabs, int_slabs = slabs(q_seq, False), slabs(q_int, True)
 
     def seq_k(c, v, k):
         event_conv_cuda(vm, c, v, k, out=vm)
@@ -1013,15 +1110,22 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
                               seq_slabs), 1) / len(seq_slabs)
     p_int = cuda_time_ms(loop(lambda c, v, k: event_conv_ref_interlaced(
         vm, c, v, k, event_par=ep), int_slabs), 1) / len(int_slabs)
-    # yardstick: fp32 conv2d (TF32 off) of the dense map of the kept events
-    dense = []
-    for c, v, k in seq_slabs:
-        d = torch.zeros(h * w, device=dev)
-        d.scatter_add_(0, (c[:, 0].long() * w + c[:, 1].long()).clamp(min=0),
-                       v.float())
-        dense.append((d.view(1, 1, h, w),
-                      k.permute(2, 0, 1)[:, None].contiguous(), None))
+    # yardsticks: fp32 conv2d (TF32 off) of the dense maps of the kept
+    # events, one input channel (the interlaced unit's launch) and all 32
+    # (the sequential unit's)
+    dense, dense1 = [], []
+    weight = kern.permute(3, 0, 1, 2).contiguous()   # (cb, C_in, kh, kw)
+    for c, v, _ in seq_slabs:
+        d = torch.zeros((c_in, h * w), device=dev)
+        d.scatter_add_(1, (c[..., 0].long() * w + c[..., 1].long()).clamp(
+            min=0), v.float())
+        d = d.view(1, c_in, h, w)
+        dense.append((d, weight, None))
+        dense1.append((d[:, :1].contiguous(), weight[:, :1].contiguous(),
+                       None))
     t_lib = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
+        d, k, padding=lp1.geometry.halo), dense1)) / len(dense1)
+    t_lib32 = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
         d, k, padding=lp1.geometry.halo), dense)) / len(dense)
     b_seq, by_seq = bound(seq_slabs)
     b_int, by_int = bound(int_slabs)
@@ -1043,6 +1147,8 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
     sps_int, sps_seq = samples_per_s(serve_plan), samples_per_s(seq_plan)
     device_profile(lambda: snn_apply(params, spikes[0], cfg, serve_plan),
                    "single-sample serve plan forward", 1 / sps_int)
+    device_profile(lambda: snn_apply(params, spikes[0], cfg, seq_plan),
+                   "single-sample event_par=1 forward", 1 / sps_seq)
     tag = f"[{card}]"
     print(f"timing event_conv_interlaced_single (conv1, one sample, depth "
           f"{lp1.queue_depth}, event_par {ep}, tile {hp}x{wp}x{cb} f32): "
@@ -1050,9 +1156,10 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
           f"{p_int:.4f}, bound {b_int:.6f} ({by_int}), conv2d {t_lib:.5f} "
           f"{tag}")
     print(f"timing event_conv_seq_single (conv1, one sample, capacity "
-          f"{lp1s.capacity}, tile {hp}x{wp}x{cb} f32): device {t_seq:.5f} "
-          f"ms/launch, host-bound {h_seq:.5f}, plain {p_seq:.4f}, bound "
-          f"{b_seq:.6f} ({by_seq}), conv2d {t_lib:.5f} {tag}")
+          f"{lp1s.capacity}, {c_in} c_in per (block 0, t) launch, tile "
+          f"{hp}x{wp}x{cb} f32): device {t_seq:.5f} ms/launch, host-bound "
+          f"{h_seq:.5f}, plain {p_seq:.4f}, bound {b_seq:.6f} ({by_seq}), "
+          f"conv2d {c_in} c_in {t_lib32:.5f} {tag}")
     print(f"timing end-to-end csnn_paper.FULL one sample per forward "
           f"(snn_apply over 8 images): serve plan {sps_int:.1f} samples/s, "
           f"event_par=1 {sps_seq:.1f} samples/s {tag}")
@@ -1064,7 +1171,7 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
              bound_by=by_int, library_ms=t_lib),
         dict(name="event_conv_seq_single", route="cuda", source=src,
              replaces=ref + "186", ms=t_seq, plain_ms=p_seq, bound_ms=b_seq,
-             bound_by=by_seq, library_ms=t_lib),
+             bound_by=by_seq, library_ms=t_lib32),
     ]
 
 

@@ -13,7 +13,9 @@ port's choice: the Pallas kernels aliased their input the same way).
 Variants (``LayerPlan.resolve_variant``):
 
 * ``"sequential"`` — queues (``aeq.build_aeq_batched``), one
-  ``event_conv_cuda_batched`` launch per (block, t, c_in);
+  ``event_conv_cuda_batched`` launch per (block, t) over all input
+  channels, applied channel by channel as the JAX package's ``c_in`` loop
+  applies them;
 * ``"interlaced-cuda"`` — segment-padded queues, one
   ``event_conv_cuda_interlaced_batched`` launch per (block, t, c_in);
 * ``"banked-cuda"`` — padded bank masks (``aeq.build_bank_masks`` plus a
@@ -34,8 +36,9 @@ dense input with ``aeq.build_fused_handoff``.
 
 One sample.  A batch of one (``run_conv_layer_planned`` runs the same
 body on one) launches the single-queue kernels for its queue variants
-(``event_conv_cuda`` / ``event_conv_cuda_interlaced``, a grid over
-channel slices, where a batched kernel would run one CTA); the banked
+(``event_conv_cuda``, the same gather over one tile, and
+``event_conv_cuda_interlaced``, a grid over channel slices where a
+batched kernel would run one CTA); the banked
 variants feed the banked kernel a one-tile carrier (JAX builds it with
 ``build_fused_handoff`` at every layer of this path, so nothing is
 emitted between layers there).  ``run_conv_layer_dense`` is the
@@ -210,7 +213,8 @@ def _run_chunk_from_events(
                 .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
                 .contiguous())
     else:
-        # one contiguous (B, cap[, 2]) slab per (t, c_in) launch
+        # one contiguous (C_in, B, cap[, 2]) slab per t: all of it per
+        # sequential launch, one (B, cap[, 2]) slab per interlaced launch
         coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
         valid = events.valid.permute(0, 2, 1, 3).contiguous()
         kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
@@ -246,26 +250,23 @@ def _run_chunk_from_events(
             if variant in BANKED:
                 event_conv_cuda_banked(vm, events[t], taps[blk],
                                        geometry=lp.geometry, out=vm)
+            elif variant != "interlaced-cuda":  # all C_in in one launch
+                if single:
+                    event_conv_cuda(tile, coords[t, :, 0], valid[t, :, 0],
+                                    kb[blk], out=tile)
+                else:
+                    event_conv_cuda_batched(vm, coords[t], valid[t], kb[blk],
+                                            out=vm)
             elif single:  # one tile, one queue per (t, c_in)
                 for ci in range(c_in):
-                    if variant == "interlaced-cuda":
-                        event_conv_cuda_interlaced(
-                            tile, coords[t, ci, 0], valid[t, ci, 0],
-                            kb[blk, ci], event_par=lp.event_par, out=tile)
-                    else:
-                        event_conv_cuda(tile, coords[t, ci, 0],
-                                        valid[t, ci, 0], kb[blk, ci],
-                                        out=tile)
+                    event_conv_cuda_interlaced(
+                        tile, coords[t, ci, 0], valid[t, ci, 0], kb[blk, ci],
+                        event_par=lp.event_par, out=tile)
             else:
                 for ci in range(c_in):
-                    if variant == "interlaced-cuda":
-                        event_conv_cuda_interlaced_batched(
-                            vm, coords[t, ci], valid[t, ci], kb[blk, ci],
-                            event_par=lp.event_par, out=vm)
-                    else:
-                        event_conv_cuda_batched(vm, coords[t, ci],
-                                                valid[t, ci], kb[blk, ci],
-                                                out=vm)
+                    event_conv_cuda_interlaced_batched(
+                        vm, coords[t, ci], valid[t, ci], kb[blk, ci],
+                        event_par=lp.event_par, out=vm)
             pooled_t = None if pooled is None else pooled[blk, t]
             if emit is None:
                 threshold_pool_cuda_batched(

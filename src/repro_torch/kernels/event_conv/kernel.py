@@ -6,6 +6,11 @@
 ``apply_banked_columns_fused``, the conv unit of the banked and
 fused-handoff variants).
 
+The sequential wrappers take every input channel's queues of one
+(channel block, time step) in one call: coords and valid gain a leading
+``C_in`` axis and the kernel is ``(C_in, kh, kw, C)``; the forms without
+that axis are the ``C_in = 1`` case.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  It checks device, dtype, shape and
 contiguity first, launches on the current stream without synchronising,
@@ -33,6 +38,9 @@ from .ref import (event_conv_ref, event_conv_ref_banked,
 #: the kernel's static shared variables
 SMEM_PER_BLOCK = 232448
 _SMEM_LIMIT = SMEM_PER_BLOCK - 1024
+#: bounds of the sequential (gather) kernel's packed slot
+_MAX_C_IN = 1024
+_MAX_SIDE = 2048
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,11 +49,11 @@ _I = ctypes.c_int
 def _lib():
     lib = runtime.load("event_conv")
     if not getattr(lib, "_typed", False):
-        lib.event_conv_seq_batched.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+        lib.event_conv_seq_batched.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_seq_batched.restype = _I
         lib.event_conv_interlaced_batched.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_interlaced_batched.restype = _I
-        lib.event_conv_seq_single.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+        lib.event_conv_seq_single.argtypes = [_P] * 5 + [_I] * 8 + [_P]
         lib.event_conv_seq_single.restype = _I
         lib.event_conv_interlaced_single.argtypes = [_P] * 5 + [_I] * 8 + [_P]
         lib.event_conv_interlaced_single.restype = _I
@@ -67,9 +75,10 @@ def _banked_lib():
 
 
 def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
-           single: bool = False) -> None:
+           single: bool = False, c_in: bool = False) -> None:
     """Shapes and dtypes of Q queues on Q tiles, or (``single``) of one
-    queue (E, 2) on one tile (Hp, Wp, C)."""
+    queue (E, 2) on one tile (Hp, Wp, C); with ``c_in`` every queue
+    operand and the kernel carry a leading input-channel axis."""
     if vm_padded.ndim != (3 if single else 4):
         want = "vm tile must be (Hp, Wp, C)" if single else \
             "vm tiles must be (Q, Hp, Wp, C)"
@@ -78,28 +87,37 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
         raise ValueError(f"unsupported vm dtype {vm_padded.dtype}; expected "
                          f"float32, int16 or int8")
     hp, wp, c = vm_padded.shape[-3:]
-    if single and (coords.ndim != 2 or coords.shape[-1] != 2):
-        raise ValueError(f"coords must be (E, 2), got {tuple(coords.shape)}")
-    if not single and (coords.ndim != 3 or coords.shape[-1] != 2
-                       or coords.shape[0] != vm_padded.shape[0]):
+    forms = ("(E, 2)" if single else "(Q, E, 2)", f"(kh, kw, {c})")
+    if c_in:
+        forms = tuple(f"{f} or (C_in, {f[1:]}" for f in forms)
+    if single and (coords.ndim != 2 + c_in or coords.shape[-1] != 2):
+        raise ValueError(f"coords must be {forms[0]}, got "
+                         f"{tuple(coords.shape)}")
+    if not single and (coords.ndim != 3 + c_in or coords.shape[-1] != 2
+                       or coords.shape[-3] != vm_padded.shape[0]):
         raise ValueError(
             f"queue count mismatch: vm has {vm_padded.shape[0]} tiles, "
-            f"coords describe {coords.shape[0] if coords.ndim else 0} queues "
-            f"(coords must be (Q, E, 2), got {tuple(coords.shape)})")
+            f"coords describe {coords.shape[-3] if coords.ndim > 2 else 0} "
+            f"queues (coords must be {forms[0]}, got {tuple(coords.shape)})")
     if coords.dtype != torch.int32:
         raise ValueError(f"coords must be int32, got {coords.dtype}")
     if valid.shape != coords.shape[:-1]:
         raise ValueError(f"valid bits shape {tuple(valid.shape)} does not "
-                         f"match event coords {tuple(coords.shape)}")
+                         f"match event coords {tuple(coords.shape)} (coords "
+                         f"{forms[0]}, valid without the last axis)")
     if valid.dtype not in (torch.bool, torch.int8, torch.uint8):
         raise ValueError(f"valid must be bool/int8/uint8, got {valid.dtype}")
-    if kernel.ndim != 3 or kernel.shape[-1] != c:
-        raise ValueError(f"kernel must be (kh, kw, {c}), got "
+    if kernel.ndim != 3 + c_in or kernel.shape[-1] != c:
+        raise ValueError(f"kernel must be {forms[1]}, got "
                          f"{tuple(kernel.shape)}")
+    if c_in and kernel.shape[0] != coords.shape[0]:
+        raise ValueError(
+            f"input-channel count mismatch: coords hold {coords.shape[0]} "
+            f"input channels' queues, kernel {kernel.shape[0]} slices")
     if kernel.dtype != vm_padded.dtype:
         raise ValueError(f"kernel dtype {kernel.dtype} must match vm dtype "
                          f"{vm_padded.dtype} (cast with .to(vm.dtype))")
-    kh, kw = kernel.shape[:2]
+    kh, kw = kernel.shape[-3:-1]
     if kh % 2 == 0 or kw % 2 == 0 or hp < kh or wp < kw:
         raise ValueError(f"kernel window ({kh}, {kw}) must be odd and fit "
                          f"the halo-padded tile ({hp}, {wp})")
@@ -115,6 +133,17 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
         raise ValueError("out must match vm in shape, dtype and device")
 
 
+def _with_c_in(coords, valid, kernel, *, single: bool):
+    """The sequential wrappers' operands with the leading input-channel
+    axis; the forms without it are the ``C_in = 1`` case.  The shapes are
+    checked by :func:`_check` after this."""
+    if coords.ndim == (2 if single else 3):
+        coords, valid = coords[None], valid[None]
+    if kernel.ndim == 3:
+        kernel = kernel[None]
+    return coords, valid, kernel
+
+
 @lru_cache(maxsize=256)
 def _smem_bytes(helper: str, *shape: int) -> int:
     """Dynamic shared memory of one CTA, from the library's own layout
@@ -125,37 +154,55 @@ def _smem_bytes(helper: str, *shape: int) -> int:
 def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
             single: bool):
     """Launch a queue conv unit: the batched entry on (Q, Hp, Wp, C)
-    tiles, or (``single``) the single-queue entry on one (Hp, Wp, C) tile,
-    a grid over channel slices."""
+    tiles, or (``single``) the single-queue entry on one (Hp, Wp, C) tile.
+    The sequential entries take (C_in, ...) operands, all input channels
+    in one launch; the interlaced entries one channel's queues."""
     for name, t in (("vm", vm_padded), ("coords", coords), ("valid", valid),
                     ("kernel", kernel), ("out", out)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     hp, wp, c = vm_padded.shape[-3:]
     e = coords.shape[-2]
-    kh, kw = kernel.shape[:2]
+    kh, kw = kernel.shape[-3:-1]
     item = vm_padded.element_size()
-    unit = "event_conv_interlaced" if event_par > 1 else "event_conv_seq"
-    if single:
-        entry = counter = unit + "_single"
-        helper, held = ("event_conv_single_smem_bytes",
-                        "one channel slice of the tile")
-    else:
-        entry, counter = unit + "_batched", unit
-        helper, held = ("event_conv_smem_bytes",
-                        f"one queue's tile ({hp}x{wp}x{c} x {item} B)")
-    smem = _smem_bytes(helper, e, hp, wp, c, kh, kw, event_par, item)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"{held} plus its {e}-slot queue needs {smem} B of shared "
-            f"memory, over the {_SMEM_LIMIT} B a CTA may use: lower the "
-            f"plan's channel_block or capacity")
     args = [vm_padded.data_ptr(), out.data_ptr(), coords.data_ptr(),
             valid.data_ptr(), kernel.data_ptr()]
-    args += [e] if single else [vm_padded.shape[0], e]
-    args += [hp, wp, c, kh, kw]
     if event_par > 1:
-        args.append(event_par)
+        if single:
+            entry = counter = "event_conv_interlaced_single"
+            helper, held = ("event_conv_single_smem_bytes",
+                            "one channel slice of the tile")
+        else:
+            entry, counter = ("event_conv_interlaced_batched",
+                              "event_conv_interlaced")
+            helper, held = ("event_conv_smem_bytes",
+                            f"one queue's tile ({hp}x{wp}x{c} x {item} B)")
+        smem = _smem_bytes(helper, e, hp, wp, c, kh, kw, event_par, item)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(
+                f"{held} plus its {e}-slot queue needs {smem} B of shared "
+                f"memory, over the {_SMEM_LIMIT} B a CTA may use: lower the "
+                f"plan's channel_block or capacity")
+        args += [e] if single else [vm_padded.shape[0], e]
+        args += [hp, wp, c, kh, kw, event_par]
+    else:
+        entry = "event_conv_seq_single" if single else "event_conv_seq_batched"
+        counter = "event_conv_seq_single" if single else "event_conv_seq"
+        c_in = coords.shape[0]
+        # a kept slot packs (input channel, window row, window column) into
+        # 10 + 11 + 11 bits, offsets are 32-bit, coords are read as int2
+        if (c_in > _MAX_C_IN or max(hp, wp) > _MAX_SIDE
+                or max(vm_padded.numel(), valid.numel(),
+                       kernel.numel()) >= 2**31):
+            raise ValueError(
+                f"{c_in} input channels' queues on {tuple(vm_padded.shape)} "
+                f"tiles: the sequential kernel takes at most {_MAX_C_IN} "
+                f"input channels, {_MAX_SIDE} rows or columns and 2**31 "
+                f"elements per operand")
+        if coords.data_ptr() % 8:
+            raise ValueError("coords must be 8-byte aligned (int32 pairs)")
+        args += [c_in] if single else [c_in, vm_padded.shape[0]]
+        args += [e, hp, wp, c, kh, kw]
     args += [runtime.DTYPE_CODES[vm_padded.dtype], runtime.stream_ptr(vm_padded)]
     lib = _lib()
     status = getattr(lib, entry)(*args)
@@ -175,14 +222,18 @@ def event_conv_cuda_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
                             valid: torch.Tensor, kernel: torch.Tensor, *,
                             out: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """Apply Q event queues, each in queue order, to Q halo-padded tiles.
+    """Apply every input channel's Q event queues, channel by channel and
+    each in queue order, to Q halo-padded tiles in one launch.
 
-    vm_padded: (Q, Hp, Wp, C) float32/int16/int8; coords (Q, E, 2) int32
-    in unpadded space; valid (Q, E) bool; kernel (kh, kw, C) unrotated, in
-    vm's dtype, shared by every queue.  Returns the updated tiles (``out``
-    when given; ``out=vm_padded`` updates in place).
+    vm_padded: (Q, Hp, Wp, C) float32/int16/int8; coords (C_in, Q, E, 2)
+    int32 in unpadded space; valid (C_in, Q, E) bool; kernel (C_in, kh,
+    kw, C) unrotated, in vm's dtype, kernel[ci] shared by channel ci's
+    queues.  The forms without the C_in axis (coords (Q, E, 2), valid (Q,
+    E), kernel (kh, kw, C)) are C_in = 1.  Returns the updated tiles
+    (``out`` when given; ``out=vm_padded`` updates in place).
     """
-    _check(vm_padded, coords, valid, kernel, out, 1)
+    coords, valid, kernel = _with_c_in(coords, valid, kernel, single=False)
+    _check(vm_padded, coords, valid, kernel, out, 1, c_in=True)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref_batched(vm_padded, coords, valid, kernel)
         return res if out is None else out.copy_(res)
@@ -221,15 +272,18 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
 def event_conv_cuda(vm_padded: torch.Tensor, coords: torch.Tensor,
                     valid: torch.Tensor, kernel: torch.Tensor, *,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Apply one event queue, in queue order, to one halo-padded tile.
+    """Apply every input channel's event queue, channel by channel and each
+    in queue order, to one halo-padded tile in one launch.
 
-    vm_padded: (Hp, Wp, C) float32/int16/int8; coords (E, 2) int32 in
-    unpadded space; valid (E,) bool; kernel (kh, kw, C) unrotated, in
-    vm's dtype.  The kernel spreads the tile's channels over CTAs, each
-    walking the whole queue.  Returns the updated tile (``out`` when
-    given; ``out=vm_padded`` updates in place).
+    vm_padded: (Hp, Wp, C) float32/int16/int8; coords (C_in, E, 2) int32
+    in unpadded space; valid (C_in, E) bool; kernel (C_in, kh, kw, C)
+    unrotated, in vm's dtype.  The forms without the C_in axis are
+    C_in = 1.  The kernel spreads the tile's pixels over CTAs.  Returns
+    the updated tile (``out`` when given; ``out=vm_padded`` updates in
+    place).
     """
-    _check(vm_padded, coords, valid, kernel, out, 1, single=True)
+    coords, valid, kernel = _with_c_in(coords, valid, kernel, single=True)
+    _check(vm_padded, coords, valid, kernel, out, 1, single=True, c_in=True)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref(vm_padded, coords, valid, kernel)
         return res if out is None else out.copy_(res)

@@ -22,9 +22,10 @@ from repro_torch.core.geometry import ConvGeometry
 
 def event_conv_ref(vm_padded: torch.Tensor, coords: torch.Tensor,
                    valid: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """One queue: vm (Hp, Wp, C), coords (E, 2), valid (E,)."""
-    return event_conv_ref_batched(vm_padded[None], coords[None], valid[None],
-                                  kernel)[0]
+    """One tile (Hp, Wp, C): coords (E, 2) or (C_in, E, 2), valid (E,) or
+    (C_in, E), kernel (kh, kw, C) or (C_in, kh, kw, C)."""
+    return event_conv_ref_batched(vm_padded[None], coords[..., None, :, :],
+                                  valid[..., None, :], kernel)[0]
 
 
 def event_conv_ref_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
@@ -32,12 +33,19 @@ def event_conv_ref_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
                            ) -> torch.Tensor:
     """Q independent queue replays, in queue order (the oracle of
     ``event_conv_cuda_batched``): vm (Q, Hp, Wp, C), coords (Q, E, 2),
-    valid (Q, E), kernel (kh, kw, C) shared.  Slots that are invalid in
-    every queue are skipped: they would add zeros."""
+    valid (Q, E), kernel (kh, kw, C) shared; or, with a leading input
+    channel axis, coords (C_in, Q, E, 2), valid (C_in, Q, E) and kernel
+    (C_in, kh, kw, C), replayed channel by channel in order (the JAX
+    scheduler's per-channel Pallas calls).  Slots that are invalid in every
+    queue of a channel are skipped: they would add zeros."""
+    if coords.ndim == 3:
+        coords, valid, kernel = coords[None], valid[None], kernel[None]
     vm = vm_padded.clone(memory_format=torch.contiguous_format)
-    k_rot = rotate_kernel(kernel).to(vm.dtype)
-    steps = valid.to(torch.bool).any(dim=0).nonzero().flatten()
-    return replay_events_(vm, coords, valid, k_rot, steps)
+    for ci in range(coords.shape[0]):
+        k_rot = rotate_kernel(kernel[ci]).to(vm.dtype)
+        steps = valid[ci].to(torch.bool).any(dim=0).nonzero().flatten()
+        replay_events_(vm, coords[ci], valid[ci], k_rot, steps)
+    return vm
 
 
 def interlaced_keep(coords: torch.Tensor, valid: torch.Tensor,

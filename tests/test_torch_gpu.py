@@ -62,8 +62,12 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     q = taeq.build_aeq_batched(torch.ones((2, 8, 8), dtype=torch.bool,
                                           device=cuda), 64)
     kern = torch.ones((3, 3, 4), device=cuda)
-    event_conv_ref_batched(vm, q.coords, q.valid, kern)
-    event_conv_cuda_batched(vm, q.coords, q.valid, kern, out=vm)
+    # three input channels' queues: one launch per call
+    q3 = taeq.build_aeq_batched(torch.ones((3, 2, 8, 8), dtype=torch.bool,
+                                           device=cuda), 64)
+    kern3 = torch.ones((3, 3, 3, 4), device=cuda)
+    event_conv_ref_batched(vm, q3.coords, q3.valid, kern3)
+    event_conv_cuda_batched(vm, q3.coords, q3.valid, kern3, out=vm)
     assert runtime.LAUNCHES == {"event_conv_seq": 1,
                                 "event_conv_interlaced": 0,
                                 "event_conv_banked": 0,
@@ -93,8 +97,9 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "event_conv_interlaced_single": 0}
     # the single-queue units count only their own launches
     qp = taeq.segment_pad(q, 4)
-    event_conv_ref(vm[0], q.coords[0], q.valid[0], kern)
-    event_conv_cuda(vm[0], q.coords[0], q.valid[0], kern, out=vm[0])
+    event_conv_ref(vm[0], q3.coords[:, 0], q3.valid[:, 0], kern3)
+    event_conv_cuda(vm[0], q3.coords[:, 0].contiguous(),
+                    q3.valid[:, 0].contiguous(), kern3, out=vm[0])
     event_conv_ref_interlaced(vm[1], qp.coords[1], qp.valid[1], kern,
                               event_par=4)
     event_conv_cuda_interlaced(vm[1], qp.coords[1], qp.valid[1], kern,
@@ -183,3 +188,54 @@ def test_single_queue_kernels_equal_plain_versions(cuda, dtype, k):
         event_conv_cuda(vm, q.coords, q.valid, kern, out=vm)
         torch.cuda.synchronize()
         assert torch.equal(vm, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_sequential_gather_equals_plain_version(cuda, dtype, k):
+    """event_conv_seq_batched / event_conv_seq_single over C_in in {1, 4}
+    input channels' truncated queues (int adds clipping mid-queue), Q in
+    {1, 3} tiles, fresh and in place; the conv1 shape of the main path
+    (32 input channels, 30x30x8 tiles, B=8 and one sample); repeated
+    coordinates."""
+    g = torch.Generator().manual_seed(20 + k)
+    geom, hh = ConvGeometry(k, k), k // 2
+    big = {torch.float32: 1.0, torch.int16: 9000.0, torch.int8: 40.0}[dtype]
+
+    def case(c_in, q, side, c, cap):
+        fm = torch.rand((c_in, q, side, side), generator=g) < 0.6
+        qs = taeq.build_aeq_batched(fm.to(cuda), cap, geometry=geom)
+        vm = (torch.randn((q, side + 2 * hh, side + 2 * hh, c), generator=g)
+              * big).to(dtype).to(cuda)
+        kern = (torch.randn((c_in, k, k, c), generator=g)
+                * big).to(dtype).to(cuda)
+        return vm, qs.coords, qs.valid, kern
+
+    for c_in, q, side, c, cap in ((1, 3, 28, 8, 256), (4, 3, 28, 8, 256),
+                                  (4, 1, 10, 5, 40), (32, 8, 28, 8, 256),
+                                  (32, 1, 28, 8, 256)):
+        vm, coords, valid, kern = case(c_in, q, side, c, cap)
+        want = event_conv_ref_batched(vm, coords, valid, kern)
+        assert torch.equal(event_conv_cuda_batched(vm, coords, valid, kern),
+                           want)
+        got = vm.clone()
+        event_conv_cuda_batched(got, coords, valid, kern, out=got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        c0, v0 = coords[:, 0].contiguous(), valid[:, 0].contiguous()
+        want = event_conv_ref(vm[0], c0, v0, kern)
+        assert torch.equal(event_conv_cuda(vm[0], c0, v0, kern), want)
+        got = vm[0].clone()
+        event_conv_cuda(got, c0, v0, kern, out=got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    coords = torch.tensor([[[[4, 4], [4, 4], [7, 4], [4, 4]]] * 2] * 2,
+                          dtype=torch.int32, device=cuda)
+    valid = torch.tensor([[[1, 1, 1, 0], [1, 1, 1, 1]]] * 2,
+                         dtype=torch.bool, device=cuda)
+    vm = (torch.randn((2, 10 + 2 * hh, 10 + 2 * hh, 8), generator=g)
+          * big).to(dtype).to(cuda)
+    kern = (torch.randn((2, k, k, 8), generator=g) * big).to(dtype).to(cuda)
+    assert torch.equal(event_conv_cuda_batched(vm, coords, valid, kern),
+                       event_conv_ref_batched(vm, coords, valid, kern))
