@@ -10,11 +10,11 @@ The rules that change results are JAX's, unchanged: ``pad_capacity``,
 ``effective_capacity``, ``snap_t_chunk``, ``aeq.interlaced_capacity`` and
 ``snap_divisor`` for the channel block — so the same arguments give the
 same truncation as the JAX package.  ``block_e`` and ``event_par`` keep
-JAX's formulas against Hopper's residency model: one CTA holds one
-queue's tile in at most :data:`SMEM_PER_BLOCK` bytes
-(``kernels/event_conv/ops.py``).  Given the same budget and one resident
-tile, the port's plan equals JAX's field by field
-(tests/test_torch_plan.py).
+JAX's formulas against a model of one resident tile in
+:data:`SMEM_PER_BLOCK` bytes (``kernels/event_conv/ops.py``); the gather
+kernels stage no tile, so the model only chooses a schedule.  Given the
+same budget and one resident tile, the port's plan equals JAX's field by
+field (tests/test_torch_plan.py).
 """
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ Variants (``LayerPlan.resolve_variant``):
   channels, applied channel by channel as the JAX package's ``c_in`` loop
   applies them;
 * ``"interlaced-cuda"`` — segment-padded queues, one
-  ``event_conv_cuda_interlaced_batched`` launch per (block, t, c_in);
+  ``event_conv_cuda_interlaced_batched`` launch per (block, t) over all
+  input channels: the same gather with the interlaced keep predicate;
 * ``"banked-cuda"`` — padded bank masks (``aeq.build_bank_masks`` plus a
   zero macro cell per side), one ``event_conv_cuda_banked`` launch per
   (block, t) over all input channels;
@@ -36,9 +37,8 @@ dense input with ``aeq.build_fused_handoff``.
 
 One sample.  A batch of one (``run_conv_layer_planned`` runs the same
 body on one) launches the single-queue kernels for its queue variants
-(``event_conv_cuda``, the same gather over one tile, and
-``event_conv_cuda_interlaced``, a grid over channel slices where a
-batched kernel would run one CTA); the banked
+(``event_conv_cuda`` and ``event_conv_cuda_interlaced``, the same
+gather over one tile, one launch per (block, t)); the banked
 variants feed the banked kernel a one-tile carrier (JAX builds it with
 ``build_fused_handoff`` at every layer of this path, so nothing is
 emitted between layers there).  ``run_conv_layer_dense`` is the
@@ -51,6 +51,7 @@ same code is the CPU reference path.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -213,12 +214,18 @@ def _run_chunk_from_events(
                 .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
                 .contiguous())
     else:
-        # one contiguous (C_in, B, cap[, 2]) slab per t: all of it per
-        # sequential launch, one (B, cap[, 2]) slab per interlaced launch
+        # one contiguous (C_in, B, cap[, 2]) slab per t and conv launch
         coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
         valid = events.valid.permute(0, 2, 1, 3).contiguous()
         kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
               .permute(3, 2, 0, 1, 4).to(vm_dtype).contiguous())
+        if variant == "interlaced-cuda":
+            conv = partial(event_conv_cuda_interlaced_batched,
+                           event_par=lp.event_par)
+            conv_single = partial(event_conv_cuda_interlaced,
+                                  event_par=lp.event_par)
+        else:
+            conv, conv_single = event_conv_cuda_batched, event_conv_cuda
     bb = bias.reshape(n_blocks, cb).to(vm_dtype)
     vm_b = _split_blocks(carry.vm.to(vm_dtype), n_blocks, cb)
     fired0 = _split_blocks(carry.fired, n_blocks, cb)
@@ -250,23 +257,11 @@ def _run_chunk_from_events(
             if variant in BANKED:
                 event_conv_cuda_banked(vm, events[t], taps[blk],
                                        geometry=lp.geometry, out=vm)
-            elif variant != "interlaced-cuda":  # all C_in in one launch
-                if single:
-                    event_conv_cuda(tile, coords[t, :, 0], valid[t, :, 0],
-                                    kb[blk], out=tile)
-                else:
-                    event_conv_cuda_batched(vm, coords[t], valid[t], kb[blk],
-                                            out=vm)
-            elif single:  # one tile, one queue per (t, c_in)
-                for ci in range(c_in):
-                    event_conv_cuda_interlaced(
-                        tile, coords[t, ci, 0], valid[t, ci, 0], kb[blk, ci],
-                        event_par=lp.event_par, out=tile)
+            elif single:  # all C_in in one launch, on the one tile
+                conv_single(tile, coords[t, :, 0], valid[t, :, 0], kb[blk],
+                            out=tile)
             else:
-                for ci in range(c_in):
-                    event_conv_cuda_interlaced_batched(
-                        vm, coords[t, ci], valid[t, ci], kb[blk, ci],
-                        event_par=lp.event_par, out=vm)
+                conv(vm, coords[t], valid[t], kb[blk], out=vm)
             pooled_t = None if pooled is None else pooled[blk, t]
             if emit is None:
                 threshold_pool_cuda_batched(

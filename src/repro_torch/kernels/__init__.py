@@ -4,9 +4,10 @@
   (``csrc/event_conv.cu``; replace ``event_conv_pallas_batched`` and
   ``event_conv_pallas_interlaced_batched``) and single-queue (the same
   file; replace ``event_conv_pallas`` and ``event_conv_pallas_interlaced``);
-  the sequential unit is one output-stationary gather per (block, t) over
-  every input channel's queues, the interlaced one a staged-tile walk per
-  input channel (single-queue: a grid over channel slices); and banked
+  both are one output-stationary gather per (block, t) over every input
+  channel's queues, the interlaced one with the Pallas unit's keep
+  predicate (a coordinate repeated in a column-homogeneous group lands
+  once); and banked
   (``csrc/event_conv_banked.cu``; the counterpart of the jnp
   ``apply_banked_columns_fused``, the conv unit of the ``banked-cuda`` and
   ``fused-handoff`` variants, one launch per (block, t) over all input
@@ -20,7 +21,8 @@
 
 Each wrapper runs its plain version (``ref.py``) for CPU tensors: the CPU
 tests (``tests/test_torch_kernels.py``, ``tests/test_torch_fused.py``,
-``tests/test_torch_single.py``, ``tests/test_torch_seq_gather.py``)
+``tests/test_torch_single.py``, ``tests/test_torch_seq_gather.py``,
+``tests/test_torch_interlaced_gather.py``)
 hold those against the JAX package, and ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py`` hold the kernels against them on a card.
 """

@@ -6,10 +6,11 @@
 ``apply_banked_columns_fused``, the conv unit of the banked and
 fused-handoff variants).
 
-The sequential wrappers take every input channel's queues of one
+The four queue wrappers take every input channel's queues of one
 (channel block, time step) in one call: coords and valid gain a leading
 ``C_in`` axis and the kernel is ``(C_in, kh, kw, C)``; the forms without
-that axis are the ``C_in = 1`` case.
+that axis are the ``C_in = 1`` case.  All four launch one gather kernel;
+the interlaced ones add its keep predicate (``ref.interlaced_keep``).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  It checks device, dtype, shape and
@@ -22,7 +23,6 @@ returned.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from typing import Optional
 
 import torch
@@ -34,11 +34,11 @@ from .ref import (event_conv_ref, event_conv_ref_banked,
                   event_conv_ref_batched, event_conv_ref_interlaced,
                   event_conv_ref_interlaced_batched)
 
-#: shared memory one CTA may use on Hopper (227 KB), less a margin for
-#: the kernel's static shared variables
+#: shared memory one CTA may use on Hopper (227 KB): the budget against
+#: which ``ops.autotune_block_e`` / ``autotune_event_par`` and ``plan.py``
+#: size queues as JAX sizes them against VMEM (the gather stages no tile)
 SMEM_PER_BLOCK = 232448
-_SMEM_LIMIT = SMEM_PER_BLOCK - 1024
-#: bounds of the sequential (gather) kernel's packed slot
+#: bounds of the gather kernel's packed slot
 _MAX_C_IN = 1024
 _MAX_SIDE = 2048
 
@@ -51,16 +51,12 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.event_conv_seq_batched.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_seq_batched.restype = _I
-        lib.event_conv_interlaced_batched.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+        lib.event_conv_interlaced_batched.argtypes = [_P] * 5 + [_I] * 10 + [_P]
         lib.event_conv_interlaced_batched.restype = _I
         lib.event_conv_seq_single.argtypes = [_P] * 5 + [_I] * 8 + [_P]
         lib.event_conv_seq_single.restype = _I
-        lib.event_conv_interlaced_single.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+        lib.event_conv_interlaced_single.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_interlaced_single.restype = _I
-        for helper in ("event_conv_smem_bytes",
-                       "event_conv_single_smem_bytes"):
-            getattr(lib, helper).argtypes = [_I] * 8
-            getattr(lib, helper).restype = ctypes.c_size_t
         lib._typed = True
     return lib
 
@@ -75,10 +71,10 @@ def _banked_lib():
 
 
 def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
-           single: bool = False, c_in: bool = False) -> None:
-    """Shapes and dtypes of Q queues on Q tiles, or (``single``) of one
-    queue (E, 2) on one tile (Hp, Wp, C); with ``c_in`` every queue
-    operand and the kernel carry a leading input-channel axis."""
+           single: bool = False) -> None:
+    """Shapes and dtypes of C_in x Q queues on Q tiles, or (``single``) of
+    C_in queues (C_in, E, 2) on one tile (Hp, Wp, C): every queue operand
+    and the kernel carry a leading input-channel axis."""
     if vm_padded.ndim != (3 if single else 4):
         want = "vm tile must be (Hp, Wp, C)" if single else \
             "vm tiles must be (Q, Hp, Wp, C)"
@@ -87,13 +83,12 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
         raise ValueError(f"unsupported vm dtype {vm_padded.dtype}; expected "
                          f"float32, int16 or int8")
     hp, wp, c = vm_padded.shape[-3:]
-    forms = ("(E, 2)" if single else "(Q, E, 2)", f"(kh, kw, {c})")
-    if c_in:
-        forms = tuple(f"{f} or (C_in, {f[1:]}" for f in forms)
-    if single and (coords.ndim != 2 + c_in or coords.shape[-1] != 2):
+    forms = tuple(f"{f} or (C_in, {f[1:]}" for f in
+                  ("(E, 2)" if single else "(Q, E, 2)", f"(kh, kw, {c})"))
+    if single and (coords.ndim != 3 or coords.shape[-1] != 2):
         raise ValueError(f"coords must be {forms[0]}, got "
                          f"{tuple(coords.shape)}")
-    if not single and (coords.ndim != 3 + c_in or coords.shape[-1] != 2
+    if not single and (coords.ndim != 4 or coords.shape[-1] != 2
                        or coords.shape[-3] != vm_padded.shape[0]):
         raise ValueError(
             f"queue count mismatch: vm has {vm_padded.shape[0]} tiles, "
@@ -107,10 +102,10 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
                          f"{forms[0]}, valid without the last axis)")
     if valid.dtype not in (torch.bool, torch.int8, torch.uint8):
         raise ValueError(f"valid must be bool/int8/uint8, got {valid.dtype}")
-    if kernel.ndim != 3 + c_in or kernel.shape[-1] != c:
+    if kernel.ndim != 4 or kernel.shape[-1] != c:
         raise ValueError(f"kernel must be {forms[1]}, got "
                          f"{tuple(kernel.shape)}")
-    if c_in and kernel.shape[0] != coords.shape[0]:
+    if kernel.shape[0] != coords.shape[0]:
         raise ValueError(
             f"input-channel count mismatch: coords hold {coords.shape[0]} "
             f"input channels' queues, kernel {kernel.shape[0]} slices")
@@ -134,8 +129,8 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
 
 
 def _with_c_in(coords, valid, kernel, *, single: bool):
-    """The sequential wrappers' operands with the leading input-channel
-    axis; the forms without it are the ``C_in = 1`` case.  The shapes are
+    """A queue wrapper's operands with the leading input-channel axis;
+    the forms without it are the ``C_in = 1`` case.  The shapes are
     checked by :func:`_check` after this."""
     if coords.ndim == (2 if single else 3):
         coords, valid = coords[None], valid[None]
@@ -144,19 +139,12 @@ def _with_c_in(coords, valid, kernel, *, single: bool):
     return coords, valid, kernel
 
 
-@lru_cache(maxsize=256)
-def _smem_bytes(helper: str, *shape: int) -> int:
-    """Dynamic shared memory of one CTA, from the library's own layout
-    (cached: the scheduler launches the same shapes over and over)."""
-    return getattr(_lib(), helper)(*shape)
-
-
 def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
             single: bool):
-    """Launch a queue conv unit: the batched entry on (Q, Hp, Wp, C)
-    tiles, or (``single``) the single-queue entry on one (Hp, Wp, C) tile.
-    The sequential entries take (C_in, ...) operands, all input channels
-    in one launch; the interlaced entries one channel's queues."""
+    """Launch a queue conv unit on (C_in, ...) operands, every input
+    channel in one launch: the batched entry on (Q, Hp, Wp, C) tiles, or
+    (``single``) the single-queue entry on one (Hp, Wp, C) tile;
+    ``event_par > 1`` selects the interlaced keep predicate."""
     for name, t in (("vm", vm_padded), ("coords", coords), ("valid", valid),
                     ("kernel", kernel), ("out", out)):
         if not t.is_contiguous():
@@ -164,45 +152,30 @@ def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
     hp, wp, c = vm_padded.shape[-3:]
     e = coords.shape[-2]
     kh, kw = kernel.shape[-3:-1]
-    item = vm_padded.element_size()
-    args = [vm_padded.data_ptr(), out.data_ptr(), coords.data_ptr(),
-            valid.data_ptr(), kernel.data_ptr()]
+    c_in = coords.shape[0]
+    # a kept slot packs (input channel, window row, window column) into
+    # 10 + 11 + 11 bits, offsets are 32-bit, coords are read as int2
+    if (c_in > _MAX_C_IN or max(hp, wp) > _MAX_SIDE
+            or max(vm_padded.numel(), valid.numel(), kernel.numel()) >= 2**31):
+        raise ValueError(
+            f"{c_in} input channels' queues on {tuple(vm_padded.shape)} "
+            f"tiles: the conv kernel takes at most {_MAX_C_IN} input "
+            f"channels, {_MAX_SIDE} rows or columns and 2**31 elements per "
+            f"operand")
+    if coords.data_ptr() % 8:
+        raise ValueError("coords must be 8-byte aligned (int32 pairs)")
     if event_par > 1:
-        if single:
-            entry = counter = "event_conv_interlaced_single"
-            helper, held = ("event_conv_single_smem_bytes",
-                            "one channel slice of the tile")
-        else:
-            entry, counter = ("event_conv_interlaced_batched",
-                              "event_conv_interlaced")
-            helper, held = ("event_conv_smem_bytes",
-                            f"one queue's tile ({hp}x{wp}x{c} x {item} B)")
-        smem = _smem_bytes(helper, e, hp, wp, c, kh, kw, event_par, item)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(
-                f"{held} plus its {e}-slot queue needs {smem} B of shared "
-                f"memory, over the {_SMEM_LIMIT} B a CTA may use: lower the "
-                f"plan's channel_block or capacity")
-        args += [e] if single else [vm_padded.shape[0], e]
-        args += [hp, wp, c, kh, kw, event_par]
+        entry = "event_conv_interlaced_single" if single else \
+            "event_conv_interlaced_batched"
+        counter = "event_conv_interlaced_single" if single else \
+            "event_conv_interlaced"
     else:
         entry = "event_conv_seq_single" if single else "event_conv_seq_batched"
         counter = "event_conv_seq_single" if single else "event_conv_seq"
-        c_in = coords.shape[0]
-        # a kept slot packs (input channel, window row, window column) into
-        # 10 + 11 + 11 bits, offsets are 32-bit, coords are read as int2
-        if (c_in > _MAX_C_IN or max(hp, wp) > _MAX_SIDE
-                or max(vm_padded.numel(), valid.numel(),
-                       kernel.numel()) >= 2**31):
-            raise ValueError(
-                f"{c_in} input channels' queues on {tuple(vm_padded.shape)} "
-                f"tiles: the sequential kernel takes at most {_MAX_C_IN} "
-                f"input channels, {_MAX_SIDE} rows or columns and 2**31 "
-                f"elements per operand")
-        if coords.data_ptr() % 8:
-            raise ValueError("coords must be 8-byte aligned (int32 pairs)")
-        args += [c_in] if single else [c_in, vm_padded.shape[0]]
-        args += [e, hp, wp, c, kh, kw]
+    args = [vm_padded.data_ptr(), out.data_ptr(), coords.data_ptr(),
+            valid.data_ptr(), kernel.data_ptr()]
+    args += [c_in] if single else [c_in, vm_padded.shape[0]]
+    args += [e, hp, wp, c, kh, kw] + ([event_par] if event_par > 1 else [])
     args += [runtime.DTYPE_CODES[vm_padded.dtype], runtime.stream_ptr(vm_padded)]
     lib = _lib()
     status = getattr(lib, entry)(*args)
@@ -233,7 +206,7 @@ def event_conv_cuda_batched(vm_padded: torch.Tensor, coords: torch.Tensor,
     (``out`` when given; ``out=vm_padded`` updates in place).
     """
     coords, valid, kernel = _with_c_in(coords, valid, kernel, single=False)
-    _check(vm_padded, coords, valid, kernel, out, 1, c_in=True)
+    _check(vm_padded, coords, valid, kernel, out, 1)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref_batched(vm_padded, coords, valid, kernel)
         return res if out is None else out.copy_(res)
@@ -249,15 +222,19 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
                                        event_par: int,
                                        out: Optional[torch.Tensor] = None
                                        ) -> torch.Tensor:
-    """Interlace-parallel :func:`event_conv_cuda_batched`: ``event_par``
-    same-column events per step.
+    """Interlace-parallel :func:`event_conv_cuda_batched`: the Pallas
+    unit's groups of ``event_par`` same-column events.
 
-    Same contract, with E a multiple of ``event_par``.  Feed it
-    segment-padded queues (``aeq.segment_pad``), where every aligned group
-    is column-homogeneous; a mixed group runs in queue order.  Bit-exact
-    vs the sequential kernel on any queue without repeated coordinates.
+    Same contract (coords (C_in, Q, E, 2) or (Q, E, 2), ...), with E a
+    multiple of ``event_par``.  Feed it segment-padded queues
+    (``aeq.segment_pad``), where every aligned group is column-homogeneous;
+    a mixed group runs in queue order, and a coordinate repeated within a
+    column-homogeneous group lands once, as in the Pallas kernel.
+    Bit-exact vs the sequential kernel on any queue without repeated
+    coordinates.
     """
     _require_par(event_par, "event_conv_cuda_batched")
+    coords, valid, kernel = _with_c_in(coords, valid, kernel, single=False)
     _check(vm_padded, coords, valid, kernel, out, event_par)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref_interlaced_batched(vm_padded, coords, valid,
@@ -283,7 +260,7 @@ def event_conv_cuda(vm_padded: torch.Tensor, coords: torch.Tensor,
     place).
     """
     coords, valid, kernel = _with_c_in(coords, valid, kernel, single=True)
-    _check(vm_padded, coords, valid, kernel, out, 1, single=True, c_in=True)
+    _check(vm_padded, coords, valid, kernel, out, 1, single=True)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref(vm_padded, coords, valid, kernel)
         return res if out is None else out.copy_(res)
@@ -297,14 +274,15 @@ def event_conv_cuda_interlaced(vm_padded: torch.Tensor, coords: torch.Tensor,
                                event_par: int,
                                out: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
-    """Interlace-parallel :func:`event_conv_cuda`: ``event_par``
-    same-column events per step, with E a multiple of ``event_par``.
+    """Interlace-parallel :func:`event_conv_cuda`: coords (C_in, E, 2) or
+    (E, 2), ..., with E a multiple of ``event_par``.
 
     Feed it segment-padded queues (``aeq.segment_pad``); a mixed group
     runs in queue order, and repeated coordinates within a
     column-homogeneous group land once, as in the Pallas kernel.
     """
     _require_par(event_par, "event_conv_cuda")
+    coords, valid, kernel = _with_c_in(coords, valid, kernel, single=True)
     _check(vm_padded, coords, valid, kernel, out, event_par, single=True)
     if not runtime.use_kernel(vm_padded, coords, valid, kernel):
         res = event_conv_ref_interlaced(vm_padded, coords, valid, kernel,

@@ -8,8 +8,9 @@ launch, and crop back.
 
 The sizing rules keep JAX's formulas with one change of residency model.
 The TPU plan modelled ``batch_tile`` tiles resident against 16 MiB of
-VMEM; on Hopper one CTA holds one queue's tile, so the budget is the
-shared memory of one block, :data:`SMEM_PER_BLOCK`, against one tile.
+VMEM; the port models one tile against the shared memory of one block,
+:data:`SMEM_PER_BLOCK` (the gather kernels stage no tile, so the model
+only chooses a schedule).
 ``block_e`` and ``event_par`` only choose a schedule — every setting gives
 the same result — while the rules that change results (``snap_divisor``
 for the channel block, and the capacity rules in ``core/plan.py`` and

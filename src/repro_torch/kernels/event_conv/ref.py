@@ -81,21 +81,30 @@ def event_conv_ref_interlaced_batched(vm_padded: torch.Tensor,
                                       kernel: torch.Tensor, *,
                                       event_par: int) -> torch.Tensor:
     """Oracle of ``event_conv_cuda_interlaced_batched``: the sequential
-    replay of the slots :func:`interlaced_keep` applies.  On queues
-    without repeated coordinates (every AEQ) that is the plain sequential
-    replay."""
-    geom = ConvGeometry.from_kernel_shape(kernel.shape)
-    keep = interlaced_keep(coords, valid, event_par, geom)
-    return event_conv_ref_batched(vm_padded, coords, keep, kernel)
+    replay of the slots :func:`interlaced_keep` applies, input channel by
+    input channel.  vm (Q, Hp, Wp, C); coords (Q, E, 2), valid (Q, E),
+    kernel (kh, kw, C); or, with a leading input-channel axis, coords
+    (C_in, Q, E, 2), valid (C_in, Q, E), kernel (C_in, kh, kw, C).  On
+    queues without repeated coordinates (every AEQ) that is the plain
+    sequential replay."""
+    if coords.ndim == 3:
+        coords, valid, kernel = coords[None], valid[None], kernel[None]
+    geom = ConvGeometry.from_kernel_shape(kernel.shape[1:])
+    c_in, q, e = valid.shape
+    keep = interlaced_keep(coords.reshape(c_in * q, e, 2),
+                           valid.reshape(c_in * q, e), event_par, geom)
+    return event_conv_ref_batched(vm_padded, coords, keep.reshape(c_in, q, e),
+                                  kernel)
 
 
 def event_conv_ref_interlaced(vm_padded: torch.Tensor, coords: torch.Tensor,
                               valid: torch.Tensor, kernel: torch.Tensor, *,
                               event_par: int) -> torch.Tensor:
-    """One queue (the oracle of ``event_conv_cuda_interlaced``): vm (Hp,
-    Wp, C), coords (E, 2), valid (E,)."""
+    """One tile (the oracle of ``event_conv_cuda_interlaced``): vm (Hp,
+    Wp, C), coords (E, 2) or (C_in, E, 2), valid (E,) or (C_in, E), kernel
+    (kh, kw, C) or (C_in, kh, kw, C)."""
     return event_conv_ref_interlaced_batched(
-        vm_padded[None], coords[None], valid[None], kernel,
+        vm_padded[None], coords[..., None, :, :], valid[..., None, :], kernel,
         event_par=event_par)[0]
 
 

@@ -45,6 +45,25 @@ def test_cuda_kernels_equal_plain_versions(cuda, dtype):
                                              event_par=8)
     assert torch.equal(got, event_conv_ref_interlaced_batched(
         vm, qp.coords, qp.valid, kern, event_par=8))
+    # the interlaced unit over 32 input channels at the conv1 shape, at the
+    # serve plan's event_par and at one that does not divide a warp, fresh
+    # and in place
+    fm32 = torch.rand((32 * 8, 28, 28), generator=g) < 0.45
+    q32 = taeq.build_aeq_batched(fm32.to(cuda), 256)
+    kern32 = (torch.randn((32, 3, 3, 8), generator=g) * 40).to(dtype).to(cuda)
+    for ep in (8, 6):
+        qp32 = taeq.segment_pad(q32, ep)
+        coords = qp32.coords.reshape(32, 8, -1, 2)
+        valid = qp32.valid.reshape(32, 8, -1)
+        want = event_conv_ref_interlaced_batched(vm, coords, valid, kern32,
+                                                 event_par=ep)
+        assert torch.equal(event_conv_cuda_interlaced_batched(
+            vm, coords, valid, kern32, event_par=ep), want)
+        got = vm.clone()
+        event_conv_cuda_interlaced_batched(got, coords, valid, kern32,
+                                           event_par=ep, out=got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
     fired = (torch.rand((8, 28, 28, 8), generator=g) < 0.1).to(cuda)
     a, b = vm.clone(), vm.clone()
     sa, pa = threshold_pool_cuda_batched(a, kern[0, 0], fired, v_t=1.0,
@@ -161,10 +180,11 @@ def test_banked_and_emit_kernels_equal_plain_versions(cuda, dtype, k):
 @pytest.mark.parametrize("k", [1, 3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
 def test_single_queue_kernels_equal_plain_versions(cuda, dtype, k):
-    """event_conv_seq_single and event_conv_interlaced_single (grid over
-    channel slices) at the FULL single-sample tiles: truncated and
-    segment-padded queues, an unpadded interlaced queue (mixed groups),
-    and a 30x30x32 tile that spans several CTAs."""
+    """event_conv_seq_single and event_conv_interlaced_single at the FULL
+    single-sample tiles: truncated and segment-padded queues, an unpadded
+    interlaced queue (mixed groups), and a 30x30x32 tile; the interlaced
+    unit over 32 input channels at the conv1 shape (event_par 8 and 6),
+    fresh and in place."""
     g = torch.Generator().manual_seed(10 + k)
     geom = ConvGeometry(k, k)
     hh = k // 2
@@ -188,6 +208,22 @@ def test_single_queue_kernels_equal_plain_versions(cuda, dtype, k):
         event_conv_cuda(vm, q.coords, q.valid, kern, out=vm)
         torch.cuda.synchronize()
         assert torch.equal(vm, want)
+    fm32 = torch.rand((32, 28, 28), generator=g) < 0.45
+    q32 = taeq.build_aeq_batched(fm32.to(cuda), 256, geometry=geom)
+    vm = (torch.randn((28 + 2 * hh, 28 + 2 * hh, 8), generator=g)
+          * big).to(dtype).to(cuda)
+    kern32 = (torch.randn((32, k, k, 8), generator=g) * big).to(dtype).to(cuda)
+    for ep in (8, 6):
+        qp32 = taeq.segment_pad(q32, ep, geom)
+        want = event_conv_ref_interlaced(vm, qp32.coords, qp32.valid, kern32,
+                                         event_par=ep)
+        assert torch.equal(event_conv_cuda_interlaced(
+            vm, qp32.coords, qp32.valid, kern32, event_par=ep), want)
+        got = vm.clone()
+        event_conv_cuda_interlaced(got, qp32.coords, qp32.valid, kern32,
+                                   event_par=ep, out=got)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
