@@ -12,18 +12,21 @@ Phases (any failure exits non-zero before the result line):
    ``torch.equal``: FULL-path shapes, k in {1, 3, 5}, float32/int16/int8,
    truncated and segment-padded queues, a tile over 48 KB, repeated
    coordinates in an interlaced group; the emit-mode threshold kernel at
-   FULL tiles with pool None/3 and capacities 16, 256 and 784, relaunched
-   into buffers filled with stale bits; the banked conv over truncating
-   carriers of 32 input channels; the single-queue conv units at the FULL
-   single-sample tiles (k in {1, 3, 5}, f32/i16/i8, truncated,
-   segment-padded and unpadded queues, repeated coordinates, a 115 KB
-   tile over several CTAs, in place); the sequential conv unit over every
-   input channel of a (block, t) in one launch at the FULL shapes (conv0
-   1, conv1 and conv2 32 input channels; B=8 and one sample) and with 4
-   input channels for k in {1, 3, 5} on 3 tiles and on one; the
-   interlaced conv unit the same way, at the serve plan's event_par and
-   queue depth, and with 4 input channels at event_par 8, 4, 2, 16 and
-   6, unpadded queues (mixed groups) and repeated coordinates;
+   the conv0 -> conv1 tiles (pool None) and the conv1 -> conv2 handoff
+   (pool 3) for B=8 and one sample and with C=5, at capacities from 1 to
+   above the map and at the demand, relaunched into buffers filled with
+   stale bits; the banked conv over truncating, empty, all-set and sparse
+   carriers of 32 input channels at the conv1 tile (B=8 and one sample)
+   and the conv2 tile (C=5), fresh and in place; the single-queue conv units
+   at the FULL single-sample tiles (k in {1, 3, 5}, f32/i16/i8, truncated,
+   segment-padded and unpadded queues, repeated coordinates, a 115 KB tile
+   over several CTAs, in place); the sequential conv unit over every input
+   channel of a (block, t) in one launch at the FULL shapes (conv0 1, conv1
+   and conv2 32 input channels; B=8 and one sample) and with 4 input
+   channels for k in {1, 3, 5} on 3 tiles and on one; the interlaced conv
+   unit the same way, at the serve plan's event_par and queue depth, and
+   with 4 input channels at event_par 8, 4, 2, 16 and 6, unpadded queues
+   (mixed groups) and repeated coordinates;
 4. the main paths: ``snn_apply_batched``'s steps (``init_state``,
    ``snn_step_chunk``, ``snn_readout``) on ``csnn_paper.FULL`` with B=8
    under the serve plan (interlaced), with ``event_par=1``, with every
@@ -40,10 +43,11 @@ Phases (any failure exits non-zero before the result line):
    images, and at a covering capacity against ``snn_apply_dense``
    (argmax);
 5. print the launch counters of each main-path run, each read from
-   counters set to 0 just before that run: each run must launch every
-   kernel of its path (``PATH_KERNELS``) and no other, and the serve-plan
-   and event_par=1 runs exactly one conv and one threshold launch per
-   (channel block, time step);
+   counters set to 0 just before that run: each run must launch the
+   kernels of its path (``PATH_KERNELS``) and no other, each exactly once
+   per (channel block, time step) of its layers (``exact_launches``: at
+   B=8 the fused run 50 banked convs, 40 emits and 10 base thresholds,
+   every other run 50 + 50);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` and ``python -m repro_torch.launch.quickstart`` and
    print their lines;
@@ -51,10 +55,12 @@ Phases (any failure exits non-zero before the result line):
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
    per (block 0, t) launch at conv1 over all 32 input channels, beside
-   ``F.conv2d`` of the same 32 channels' kept events); then end-to-end
-   samples/s of every path and a ``torch.profiler`` breakdown of one
-   forward of the serve, event_par=1 and fused plans and of one
-   single-sample forward under the serve plan and event_par=1.
+   ``F.conv2d`` of the same 32 channels' kept events; the banked conv
+   also for one sample and at conv2, the emit kernel at both handoffs);
+   then end-to-end samples/s of every path and a ``torch.profiler``
+   breakdown of one forward of the serve, event_par=1, fused and
+   banked-cuda plans and of one single-sample forward under the serve
+   plan and event_par=1.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -271,8 +277,14 @@ def check_kernels(dev) -> dict:
 
 
 def check_banked_and_emit(g, dev, same) -> None:
-    """Phase 3, slice 2: the emit-mode threshold kernel at FULL tiles and
-    the banked conv over truncating carriers of 32 input channels."""
+    """Phase 3, the fused-handoff kernels: the emit-mode threshold kernel
+    at the FULL conv0 -> conv1 tiles (28x28x8) and the conv1 -> conv2
+    handoff (pool 3, a 10x10 map), for B=8 and one sample and with C=5, at
+    capacities 1, 16, 256, 784, the demand and above the map, relaunched
+    into buffers filled with stale bits; the banked conv over carriers of
+    32 input channels (truncating, empty, all set, sparse) at the conv1
+    tile (30x30x8) for B=8 and one sample and at the conv2 tile (12x12x5),
+    fresh and in place."""
     import torch
 
     from repro_torch.core.aeq import build_fused_handoff
@@ -285,48 +297,68 @@ def check_banked_and_emit(g, dev, same) -> None:
     from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
 
     names = ("spikes", "pooled", "masks", "count", "seg_counts")
+
+    def emit(tag, geom, q, c, pool, caps, dtype):
+        hh = geom.kh // 2
+        vm = rand_tile(g, (q, 28 + 2 * hh, 28 + 2 * hh, c), dtype, dev)
+        bias = rand_kernel(g, (c,), dtype, dev)
+        fired = (torch.rand((q, 28, 28, c), generator=g) < 0.1).to(dev)
+        v_t = 0.5 if dtype == torch.float32 else 20
+        args = dict(v_t=v_t, pool=pool, halo=(hh, hh), emit_geometry=geom)
+        demand = int(threshold_pool_tile_ref(vm.clone(), bias, fired, **args,
+                                             emit_capacity=1)[3].max())
+        for cap in sorted(set(caps) | {max(demand, 1)}):
+            vm_k, vm_r = vm.clone(), vm.clone()
+            outs = threshold_pool_cuda_emit(vm_k, bias, fired, **args,
+                                            emit_capacity=cap)
+            # stale bits: relaunch into the same buffers, filled
+            for o in outs:
+                if o is not None:
+                    o.fill_(1)
+            vm_k = vm.clone()
+            outs = threshold_pool_cuda_emit(
+                vm_k, bias, fired, **args, emit_capacity=cap,
+                fired_out=outs[0], pooled_out=outs[1], masks_out=outs[2],
+                count_out=outs[3], seg_counts_out=outs[4])
+            want = threshold_pool_tile_ref(vm_r, bias, fired, **args,
+                                           emit_capacity=cap)
+            etag = f"{tag} Q={q} C={c} pool={pool} capacity={cap}"
+            same(f"threshold_pool_emit vm {etag}", vm_k, vm_r)
+            for name, a, b in zip(names, outs, want):
+                if a is not None:
+                    same(f"threshold_pool_emit {name} {etag}", a, b)
+
+    def banked(tag, geom, q, side, c, density, cap, dtype):
+        hh = geom.kh // 2
+        spikes = (torch.rand((q, 1, side, side, 32), generator=g)
+                  < density).to(dev)
+        ho = build_fused_handoff(spikes, cap, geom)
+        vm = rand_tile(g, (q, side + 2 * hh, side + 2 * hh, c), dtype, dev)
+        taps = tap_matrix(rand_kernel(g, (geom.kh, geom.kw, 32, c), dtype,
+                                      dev))
+        taps = taps.permute(2, 0, 1, 3).contiguous()
+        want = event_conv_ref_banked(vm, ho.masks[0], taps, geom)
+        btag = (f"{tag} Q={q} {side + 2 * hh}x{side + 2 * hh}x{c} "
+                f"density={density} capacity={cap}")
+        same(f"event_conv_banked {btag}",
+             event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom),
+             want)
+        event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom, out=vm)
+        same(f"event_conv_banked in place {btag}", vm, want)
+
     for k in (1, 3, 5):
-        geom, hh = ConvGeometry(k, k), k // 2
+        geom = ConvGeometry(k, k)
         for dtype in (torch.float32, torch.int16, torch.int8):
             tag = f"k={k} {dtype}"
-            # the emit kernel: FULL producer tiles, the consumer's k x k
-            for pool in (None, 3):
-                for cap in (16, 256, 784):
-                    vm = rand_tile(g, (B, 28 + 2 * hh, 28 + 2 * hh, 8), dtype,
-                                   dev)
-                    bias = rand_kernel(g, (8,), dtype, dev)
-                    fired = (torch.rand((B, 28, 28, 8), generator=g)
-                             < 0.1).to(dev)
-                    v_t = 0.5 if dtype == torch.float32 else 20
-                    vm_k, vm_r = vm.clone(), vm.clone()
-                    args = dict(v_t=v_t, pool=pool, halo=(hh, hh),
-                                emit_capacity=cap, emit_geometry=geom)
-                    outs = threshold_pool_cuda_emit(vm_k, bias, fired, **args)
-                    # stale bits: relaunch into the same buffers, filled
-                    for o in outs:
-                        if o is not None:
-                            o.fill_(1)
-                    vm_k = vm.clone()
-                    outs = threshold_pool_cuda_emit(
-                        vm_k, bias, fired, **args, fired_out=outs[0],
-                        pooled_out=outs[1], masks_out=outs[2],
-                        count_out=outs[3], seg_counts_out=outs[4])
-                    want = threshold_pool_tile_ref(vm_r, bias, fired, **args)
-                    etag = f"{tag} pool={pool} capacity={cap}"
-                    same(f"threshold_pool_emit vm {etag}", vm_k, vm_r)
-                    for name, a, b in zip(names, outs, want):
-                        if a is not None:
-                            same(f"threshold_pool_emit {name} {etag}", a, b)
-            # the banked conv: 32 input channels, one truncating time step
-            spikes = (torch.rand((B, 1, 28, 28, 32), generator=g)
-                      < 0.5).to(dev)
-            ho = build_fused_handoff(spikes, 256, geom)
-            vm = rand_tile(g, (B, 28 + 2 * hh, 28 + 2 * hh, 8), dtype, dev)
-            taps = tap_matrix(rand_kernel(g, (k, k, 32, 8), dtype, dev))
-            taps = taps.permute(2, 0, 1, 3).contiguous()
-            same(f"event_conv_banked {tag}",
-                 event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom),
-                 event_conv_ref_banked(vm, ho.masks[0], taps, geom))
+            for q in (B, 1):
+                for pool in (None, 3):
+                    emit(tag, geom, q, 8, pool, (1, 16, 256, 784, 785), dtype)
+                emit(tag, geom, q, 5, 3, (1, 100), dtype)
+                # carriers: truncating, empty, all set, sparse; conv2 tile
+                for density, cap in ((0.5, 256), (0.0, 256), (1.0, 784),
+                                     (0.05, 256)):
+                    banked(tag, geom, q, 28, 8, density, cap, dtype)
+                banked(tag, geom, q, 10, 5, 0.9, 100, dtype)
 
 
 def check_single(g, dev, same) -> None:
@@ -599,24 +631,28 @@ PATH_KERNELS = {
     "single, banked-cuda": ("event_conv_banked", "threshold_pool"),
 }
 BATCHED_PATHS = tuple(p for p in PATH_KERNELS if not p.startswith("single"))
-# the serve-plan and event_par=1 runs launch their queue conv unit once
-# per (channel block, time step) over all input channels, as the threshold
-# unit
-EXACT_PATHS = ("serve plan (interlaced)", "event_par=1 (sequential)",
-               "single, serve plan (interlaced)",
-               "single, event_par=1 (sequential)")
 
 
-def per_step_launches(cfg, plan) -> int:
-    """(channel block, time step) pairs of one forward's conv layers."""
-    return cfg.t_steps * sum(lp.c_out // lp.channel_block
-                             for lp in plan.layers)
+def exact_launches(path, cfg, plan) -> dict:
+    """Launches of each kernel of ``path`` in one forward: its conv unit
+    and its threshold unit once per (channel block, time step) of every
+    conv layer over all input channels; on the batched fused-handoff path
+    a layer whose consumer is pinned to ``"fused-handoff"`` thresholds
+    through the emit kernel, the last layer through the base mode."""
+    blocks = [cfg.t_steps * lp.c_out // lp.channel_block
+              for lp in plan.layers]
+    if path != "fused-handoff":
+        return {k: sum(blocks) for k in PATH_KERNELS[path]}
+    emit = sum(n for n, nxt in zip(blocks, plan.layers[1:])
+               if nxt.resolve_variant() == "fused-handoff")
+    return {"event_conv_banked": sum(blocks), "threshold_pool_emit": emit,
+            "threshold_pool": sum(blocks) - emit}
 
 
-def counted(path, fn, launches, exact=None):
+def counted(path, fn, launches, exact):
     """Run ``fn`` from launch counters set to 0 and return its result;
-    fail unless it launched every kernel of ``path`` and no other, each
-    ``exact`` times when that is given."""
+    fail unless it launched every kernel of ``path`` exactly ``exact[k]``
+    times and no other kernel."""
     import torch
 
     from repro_torch.kernels import runtime
@@ -631,9 +667,9 @@ def counted(path, fn, launches, exact=None):
             fail(f"kernel {k} was never launched on the {path} path")
         if k not in kernels and n:
             fail(f"kernel {k} was launched {n}x on the {path} path")
-        if k in kernels and exact is not None and n != exact:
+        if k in kernels and n != exact[k]:
             fail(f"kernel {k} was launched {n}x on the {path} path, not "
-                 f"once per (channel block, time step): {exact}x")
+                 f"{exact[k]}x (once per (channel block, time step))")
         if k in kernels:
             launches.setdefault(k, n)
     return out
@@ -667,10 +703,9 @@ def main_path(dev, cfg, wcfg):
     print(f"serve plan:\n{plans['serve plan (interlaced)']}")
     got, launches, cpu = {}, {}, {}
     for path in BATCHED_PATHS:
-        exact = (per_step_launches(cfg, plans[path]) if path in EXACT_PATHS
-                 else None)
         got[path] = counted(path, lambda p=plans[path]: forward(
-            params, spikes, cfg, p), launches, exact)
+            params, spikes, cfg, p), launches,
+            exact_launches(path, cfg, plans[path]))
     for path, plan in plans.items():
         cpu[path] = forward(to_cpu(params), spikes.cpu(), cfg, plan)
         hold(f"csnn_paper.FULL {path}", got[path], cpu[path])
@@ -766,9 +801,8 @@ def single_path(dev, cfg, params, plans, launches):
     cparams, cspikes = to_cpu(params), spikes.cpu()
     for path in BATCHED_PATHS:
         plan, name = plans[path], f"single, {path}"
-        exact = per_step_launches(cfg, plan) if name in EXACT_PATHS else None
         runs = [counted(name, lambda: snn_apply(params, spikes[0], cfg, plan),
-                        launches, exact)]
+                        launches, exact_launches(name, cfg, plan))]
         runs += [snn_apply(params, spikes[b], cfg, plan) for b in range(1, B)]
         logits = torch.stack([r[0] for r in runs]).cpu()
         blogits, bstats = snn_apply_batched(params, spikes, cfg, plan)
@@ -966,6 +1000,8 @@ def timing(dev, cfg, params, imgs, plans, card):
     device_profile(forward_fn(seq_plan), "event_par=1 forward", B / sps_seq)
     device_profile(forward_fn(plans["fused-handoff"]), "fused-handoff forward",
                    B / sps_fused)
+    device_profile(forward_fn(plans["banked-cuda"]), "banked-cuda forward",
+                   B / sps_banked)
     fused = timing_fused(dev, cfg, params, spikes, plans["fused-handoff"],
                          card)
     tag = f"[{card}]"
@@ -1007,110 +1043,144 @@ def timing(dev, cfg, params, imgs, plans, card):
 
 
 def timing_fused(dev, cfg, params, spikes, fplan, card) -> list:
-    """Phase 7, slice 2: the emit kernel at the conv0 -> conv1 handoff and
-    the banked conv at conv1, on this run's data (conv0 of the fused plan
-    emits the carrier conv1 consumes).  Returns their kernel records."""
-    import torch
-
-    from repro_torch.core.aeq import deinterlace
-    from repro_torch.core.event_conv import tap_matrix
+    """Phase 7, the fused-handoff kernels: on this run's data (conv0 of the
+    fused plan emits the carrier conv1 consumes, conv1 the one conv2
+    consumes), the emit kernel at the conv0 -> conv1 and conv1 -> conv2
+    handoffs and the banked conv at conv1 (B=8, and sample 0 alone: the
+    single-sample pins' Q=1 launch) and at conv2 (C=5).  Returns their
+    kernel records."""
     from repro_torch.core.scheduler import (init_conv_carry,
                                             run_conv_layer_batched_chunk)
-    from repro_torch.kernels.event_conv.kernel import event_conv_cuda_banked
-    from repro_torch.kernels.event_conv.ref import event_conv_ref_banked
+
+    lp0, lp1, lp2 = fplan.layers[:3]
+    ho1, carry0, _ = run_conv_layer_batched_chunk(
+        spikes, params["conv0"]["w"], params["conv0"]["b"], cfg.v_t, lp0,
+        init_conv_carry(lp0, B, device=dev),
+        emit=(lp1.capacity, lp1.geometry))
+    ho2, carry1, _ = run_conv_layer_batched_chunk(
+        ho1, params["conv1"]["w"], params["conv1"]["b"], cfg.v_t, lp1,
+        init_conv_carry(lp1, B, device=dev),
+        emit=(lp2.capacity, lp2.geometry))
+    tag = f"[{card}]"
+    e1 = time_emit(dev, cfg, params["conv0"]["b"], carry0, lp0, lp1,
+                   "conv0 -> conv1", tag)
+    e2 = time_emit(dev, cfg, params["conv1"]["b"], carry1, lp1, lp2,
+                   "conv1 -> conv2", tag)
+    slabs1 = [ho1.masks[t] for t in range(ho1.masks.shape[0])]
+    one = [m[:, :1].contiguous() for m in slabs1]
+    slabs2 = [ho2.masks[t] for t in range(ho2.masks.shape[0])]
+    c1 = time_banked(dev, params["conv1"]["w"], lp1, slabs1, "conv1, B=8",
+                     tag)
+    c1s = time_banked(dev, params["conv1"]["w"], lp1, one,
+                      "conv1, one sample", tag)
+    c2 = time_banked(dev, params["conv2"]["w"], lp2, slabs2, "conv2, B=8",
+                     tag)
+    src = "src/repro_torch/kernels/csrc/"
+    conv = dict(name="event_conv_banked", route="cuda",
+                source=src + "event_conv_banked.cu",
+                replaces="src/repro/core/event_conv.py:393")
+    emit = dict(name="threshold_pool_emit", route="cuda",
+                source=src + "threshold_pool.cu",
+                replaces="src/repro/kernels/threshold_pool/kernel.py:68",
+                library_ms=None)
+    return [
+        dict(conv, **c1),
+        dict(emit, **e1),
+        dict(conv, **c1s, name="event_conv_banked (conv1, one sample)"),
+        dict(conv, **c2, name="event_conv_banked (conv2, C=5)"),
+        dict(emit, **e2, name="threshold_pool_emit (conv1 -> conv2)"),
+    ]
+
+
+def time_emit(dev, cfg, bias, carry, lp, nxt, label, tag) -> dict:
+    """The emit kernel on channel block 0 of a producer's tile and latch
+    after its run, into the consumer's carrier: device, host-bound and
+    plain ms per launch and the bound."""
     from repro_torch.kernels.threshold_pool.kernel import \
         threshold_pool_cuda_emit
     from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
 
-    lp0, lp1 = fplan.layers[:2]
-    ho, carry0, _ = run_conv_layer_batched_chunk(
-        spikes, params["conv0"]["w"], params["conv0"]["b"], cfg.v_t, lp0,
-        init_conv_carry(lp0, B, device=dev),
-        emit=(lp1.capacity, lp1.geometry))
-    tag = f"[{card}]"
-
-    # emit: conv0's channel block 0, its tile and latch after the run
-    cb0 = lp0.channel_block
-    vm_e = carry0.vm[..., :cb0].contiguous()
-    fired_e = carry0.fired[..., :cb0].contiguous()
-    bias_e = params["conv0"]["b"][:cb0].contiguous()
-    args = dict(v_t=cfg.v_t, pool=lp0.pool, halo=lp0.geometry.halo,
-                emit_capacity=lp1.capacity, emit_geometry=lp1.geometry)
-    outs = threshold_pool_cuda_emit(vm_e.clone(), bias_e, fired_e, **args)
+    cb = lp.channel_block
+    vm = carry.vm[..., :cb].contiguous()
+    fired = carry.fired[..., :cb].contiguous()
+    b = bias[:cb].contiguous()
+    args = dict(v_t=cfg.v_t, pool=lp.pool, halo=lp.geometry.halo,
+                emit_capacity=nxt.capacity, emit_geometry=nxt.geometry)
+    outs = threshold_pool_cuda_emit(vm.clone(), b, fired, **args)
     names = ("fired_out", "pooled_out", "masks_out", "count_out",
              "seg_counts_out")
     bufs = dict(zip(names, outs))
 
     def emit_k():
-        threshold_pool_cuda_emit(vm_e, bias_e, fired_e, **args, **bufs)
+        threshold_pool_cuda_emit(vm, b, fired, **args, **bufs)
 
-    t_emit = graph_time_ms(lambda: [emit_k() for _ in range(50)]) / 50
-    h_emit = cuda_time_ms(emit_k, 200)
-    p_emit = cuda_time_ms(lambda: threshold_pool_tile_ref(
-        vm_e, bias_e, fired_e, **args), 20)
-    h, w = lp0.in_hw
-    cells = B * h * w * cb0
+    t = graph_time_ms(lambda: [emit_k() for _ in range(50)]) / 50
+    h_t = cuda_time_ms(emit_k, 200)
+    p_t = cuda_time_ms(lambda: threshold_pool_tile_ref(vm, b, fired, **args),
+                       20)
+    h, w = lp.in_hw
+    cells = B * h * w * cb
     out_bytes = sum(o.numel() * o.element_size() for o in outs
                     if o is not None)
-    e_bytes = cells * (2 * vm_e.element_size() + 1) + cb0 * 4 + out_bytes
+    nbytes = cells * (2 * vm.element_size() + 1) + cb * 4 + out_bytes
     # bias add, compare, latch OR per neuron; scan add and rank compare
     # per emitted cell
-    e_ops = 3 * cells + 2 * outs[1 if lp0.pool else 0].numel()
-    tb, to = e_bytes / PEAK_BYTES, e_ops / PEAK_F32
-    b_emit, by_emit = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
-    print(f"timing threshold_pool_emit (conv0 -> conv1, B={B}, {h}x{w}x{cb0}"
-          f", capacity {lp1.capacity}, f32): device {t_emit:.5f} ms/launch, "
-          f"host-bound {h_emit:.5f}, plain {p_emit:.4f}, bound {b_emit:.6f} "
-          f"({by_emit}) {tag}")
+    nops = 3 * cells + 2 * outs[1 if lp.pool else 0].numel()
+    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
+    bound, by = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    print(f"timing threshold_pool_emit ({label}, B={B}, {h}x{w}x{cb}, pool "
+          f"{lp.pool}, capacity {nxt.capacity}, f32): device {t:.5f} "
+          f"ms/launch, host-bound {h_t:.5f}, plain {p_t:.4f}, bound "
+          f"{bound:.6f} ({by}) {tag}")
+    return dict(ms=t, plain_ms=p_t, bound_ms=bound, bound_by=by)
 
-    # banked conv: conv1's channel block 0 over every step of the carrier
-    cb1 = lp1.channel_block
-    hp, wp, _ = lp1.vm_tile
-    hh, hw = lp1.geometry.halo
-    kern1 = params["conv1"]["w"][..., :cb1]
-    taps = tap_matrix(kern1).permute(2, 0, 1, 3).contiguous()
-    vm1 = torch.zeros((B, hp, wp, cb1), device=dev)
-    slabs = [ho.masks[t] for t in range(ho.masks.shape[0])]
+
+def time_banked(dev, weight, lp, slabs, label, tag) -> dict:
+    """The banked conv on channel block 0 of a layer, one launch per t
+    over the carrier slabs (C_in, Q, ...) of this run: device, host-bound
+    and plain ms per launch, the bound, and ``F.conv2d`` (TF32 off) of the
+    dense maps of the same kept events as the library yardstick."""
+    import torch
+
+    from repro_torch.core.aeq import deinterlace
+    from repro_torch.core.event_conv import tap_matrix
+    from repro_torch.kernels.event_conv.kernel import event_conv_cuda_banked
+    from repro_torch.kernels.event_conv.ref import event_conv_ref_banked
+
+    cb, geom = lp.channel_block, lp.geometry
+    hp, wp, _ = lp.vm_tile
+    hh, hw = geom.halo
+    q = slabs[0].shape[1]
+    kern = weight[..., :cb]
+    taps = tap_matrix(kern).permute(2, 0, 1, 3).contiguous()
+    vm = torch.zeros((q, hp, wp, cb), device=dev)
 
     def conv_k():
         for m in slabs:
-            event_conv_cuda_banked(vm1, m, taps, geometry=lp1.geometry, out=vm1)
+            event_conv_cuda_banked(vm, m, taps, geometry=geom, out=vm)
 
-    t_conv = graph_time_ms(conv_k) / len(slabs)
-    h_conv = cuda_time_ms(conv_k, 5) / len(slabs)
-    p_conv = cuda_time_ms(lambda: [event_conv_ref_banked(
-        vm1, m, taps, lp1.geometry) for m in slabs], 1) / len(slabs)
-    # yardstick: fp32 conv2d (TF32 off) of the dense map of the kept events
-    dense = [deinterlace(m[..., 1:-1, 1:-1], (hp, wp), lp1.geometry)
+    t = graph_time_ms(conv_k) / len(slabs)
+    h_t = cuda_time_ms(conv_k, 5) / len(slabs)
+    p_t = cuda_time_ms(lambda: [event_conv_ref_banked(vm, m, taps, geom)
+                                for m in slabs], 1) / len(slabs)
+    dense = [deinterlace(m[..., 1:-1, 1:-1], (hp, wp), geom)
              [..., hh:hp - hh, hw:wp - hw].permute(1, 0, 2, 3).float()
              .contiguous() for m in slabs]
-    weight = kern1.permute(3, 2, 0, 1).contiguous()
-    t_lib = graph_time_ms(lambda: [torch.nn.functional.conv2d(
-        d, weight, padding=lp1.geometry.halo) for d in dense]) / len(dense)
-    c_bytes = (2 * vm1.numel() * 4 + taps.numel() * 4
-               + sum(m.numel() for m in slabs) / len(slabs))
-    c_ops = (sum(int(m.sum()) for m in slabs) / len(slabs)
-             * lp1.geometry.n_banks * cb1)
-    tb, to = c_bytes / PEAK_BYTES, c_ops / PEAK_F32
-    b_conv, by_conv = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
-    print(f"timing event_conv_banked (conv1, B={B}, tile {hp}x{wp}x{cb1}, "
-          f"{lp1.c_in} c_in per launch, capacity {lp1.capacity}, f32): device "
-          f"{t_conv:.5f} ms/launch, host-bound {h_conv:.5f}, plain "
-          f"{p_conv:.4f}, bound {b_conv:.6f} ({by_conv}), conv2d "
-          f"{t_lib:.5f} {tag}")
-    src = "src/repro_torch/kernels/csrc/"
-    return [
-        dict(name="event_conv_banked", route="cuda",
-             source=src + "event_conv_banked.cu",
-             replaces="src/repro/core/event_conv.py:393", ms=t_conv,
-             plain_ms=p_conv, bound_ms=b_conv, bound_by=by_conv,
-             library_ms=t_lib),
-        dict(name="threshold_pool_emit", route="cuda",
-             source=src + "threshold_pool.cu",
-             replaces="src/repro/kernels/threshold_pool/kernel.py:68",
-             ms=t_emit, plain_ms=p_emit, bound_ms=b_emit, bound_by=by_emit,
-             library_ms=None),
-    ]
+    wt = kern.permute(3, 2, 0, 1).contiguous()
+    lib = graph_time_ms(lambda: [torch.nn.functional.conv2d(
+        d, wt, padding=geom.halo) for d in dense]) / len(dense)
+    nbytes = (2 * vm.numel() * 4 + taps.numel() * 4
+              + sum(m.numel() for m in slabs) / len(slabs))
+    nops = (sum(int(m.sum()) for m in slabs) / len(slabs) * geom.n_banks
+            * cb)
+    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
+    bound, by = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    print(f"timing event_conv_banked ({label}, tile {hp}x{wp}x{cb}, "
+          f"{lp.c_in} c_in per launch, capacity {lp.capacity}, f32): device "
+          f"{t:.5f} ms/launch, host-bound {h_t:.5f}, plain {p_t:.4f}, bound "
+          f"{bound:.6f} ({by}), conv2d {lp.c_in} c_in {lib:.5f} {tag}")
+    return dict(ms=t, plain_ms=p_t, bound_ms=bound, bound_by=by,
+                library_ms=lib)
 
 
 def timing_single(dev, cfg, params, plans, spikes, card) -> list:
@@ -1293,8 +1363,9 @@ def main() -> int:
                      card)
     kernels += timing_single(dev, csnn_paper.FULL, params, plans, sspikes,
                              card)
-    for k in kernels:
-        k.update(launches=launches[k["name"]], max_abs_err=max_err[k["name"]])
+    for k in kernels:  # a record at another shape counts its kernel's runs
+        name = k["name"].split()[0]
+        k.update(launches=launches[name], max_abs_err=max_err[name])
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

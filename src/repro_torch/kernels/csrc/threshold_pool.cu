@@ -23,6 +23,7 @@
 // spike map is never re-read; channels are innermost, so neighbouring
 // threads touch neighbouring bytes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,33 +105,57 @@ cudaError_t launch(void* vm, const void* bias, const void* fired_in,
 // compacted into the next layer's fused-handoff carrier (the paper's
 // run-time AEQ builder right behind the comparators).
 //
-// One CTA per (channel, tile) = slab (ch, q) of the carrier.  The CTA
-// walks the pooled map in the consumer's interlace order n = (s, I, J)
-// (column s = kw*(i%kh) + j%kw, macro cell (I, J) = (i//kh, j//kw)) over
-// the map padded to window multiples; each thread owns a contiguous run
-// of n, thresholds the p x p window of each of its cells in place
-// (writing fired_out and pooled) and keeps the pooled bit in shared
-// memory.  A block-wide exclusive scan of the per-thread bit counts
-// (warp shuffles, then one shared-memory pass over the warp totals)
-// gives each set bit its rank in the (s, i, j) read order; the block
-// total is the demand count.  A bit is kept when its rank is below
-// min(capacity, h'*w'): aeq.ranked_keep's tail drop.  Last, every byte of
-// the slab (n_banks, HBp+2, WBp+2) is written once, 0 or the kept bit
-// placed by aeq.place_padded_banks' static offsets, so the zero ring and
-// every unkept cell are cleared on each launch.
+// Per slab (channel, tile) of the carrier: the pooled map is walked in
+// the consumer's interlace order n = (s, I, J) (column s = kw*(i%kh) +
+// j%kw, macro cell (I, J) = (i//kh, j//kw)) over the map padded to window
+// multiples; P(n), the number of set bits before n, ranks each bit, and a
+// bit is kept when P(n) < min(capacity, h'*w') (aeq.ranked_keep's tail
+// drop).  The demand count is P at the end; the kept events of column s
+// are seg_counts[s] = min(P(end of s), limit) - min(P(start of s),
+// limit), straight from the scan.  Every byte of the slab (n_banks,
+// HBp+2, WBp+2) is written on each launch, 0 or the kept bit placed by
+// aeq.place_padded_banks' static offsets, so the zero ring and every
+// unkept cell are cleared.
 //
-// What bounds it on the card: bytes (~0.6 MB per launch at the FULL
-// conv0 shapes, against ~10^5 operations), so each neuron is read and
-// written once and the carrier is written once, with no second pass over
-// the pooled map in device memory.  Its time is launch latency plus the
-// CTA's serial phases and three barriers.  The (channel, tile) CTA reads
-// the tile with a stride of C elements, so neighbouring CTAs share
-// sectors through L2 rather than coalescing.
+// What bounds it on the card: bytes (~0.6 MB per launch at the FULL conv0
+// shapes, against ~10^5 operations), and below that, at these sizes,
+// latency: the first design ran one 256-thread CTA per slab (64 CTAs at
+// B=8, half the SMs idle), in four phases with three barriers, and its
+// per-column counts were a serial loop of 9 threads over ~100 bytes each
+// (8.94 us per launch against 4.50 us for the base mode).  This design:
+//
+// * splits each slab over a thread block cluster of K CTAs (K <= 8, the
+//   smallest that gives CTAs to more than half the SMs: K = 2 at B=8, 128
+//   CTAs), each CTA owning a contiguous range of n.  Reading the tile
+//   coalesced across channels instead (a CTA per tile's channel block)
+//   would leave 8 CTAs at B=8 and a scan per channel with lanes on the
+//   channel axis; the cluster keeps one channel per CTA and the scan per
+//   slab, and the C CTAs that read one pixel's channels share its sectors
+//   through L2.
+// * ranks by warp intrinsics: one cell per lane in interlace order,
+//   __ballot_sync + __popc within a warp, one barrier for the warps'
+//   counts, which warp 0 scans (shuffles) into the CTA's total.  The CTAs
+//   exchange totals through distributed shared memory (one cluster
+//   barrier), so each lane knows its P(n) without a second pass.
+// * takes seg_counts from the scan: the lane at the first cell of each
+//   column s >= 1 stores P there into CTA 0's table, and CTA 0 differences
+//   the table after the second cluster barrier.  No serial loop.
+// * writes the slab once, in 16-byte stores: each CTA holds a slice of
+//   the slab image in shared memory, zeroed first; a kept bit is stored
+//   into the slice's owner CTA (distributed shared memory), and after the
+//   second barrier each CTA writes its slice.
+// A lane thresholds its cell's p x p window (up to 3 x 3) with all its
+// loads in flight before the first store (vm, fired_in and fired_out may
+// alias: each neuron is read before it is written, by the one lane that
+// owns it).  A CTA takes at most 1024 cells per round and 32 rounds, so a
+// slab may hold 8 x 1024 x 32 interlace cells.  What is left (PERF.md):
+// the tile's first read and the two cluster barriers, each waiting for
+// the slower CTA.
 
-constexpr int EMIT_THREADS = 256;
-constexpr int EMIT_WARPS = EMIT_THREADS / 32;
-// shared memory ahead of the bit array: 8 warp prefixes and the total
-constexpr int EMIT_SMEM_HEAD = 64;
+constexpr int kEmitMaxCluster = 8;   // portable cluster size
+constexpr int kEmitMaxThreads = 1024;
+constexpr int kEmitMaxRounds = 32;   // bits of a lane's round mask
+constexpr int kEmitWindow = 3;       // pool windows loaded all at once
 
 __host__ __device__ __forceinline__ int emit_cells(int h, int w, int pool,
                                                    int kh, int kw) {
@@ -138,96 +163,226 @@ __host__ __device__ __forceinline__ int emit_cells(int h, int w, int pool,
   return kh * kw * ((ph + kh - 1) / kh) * ((pw + kw - 1) / kw);
 }
 
+// Bias, threshold and latch over the p x p window of pooled cell (py, px)
+// of tile b, channel ch, in place; returns the window's OR.  Windows up to
+// 3 x 3 issue every load before the first store; larger ones go row by
+// row.
 template <typename T, typename V>
-__global__ void __launch_bounds__(EMIT_THREADS) threshold_pool_emit_kernel(
+__device__ __forceinline__ bool threshold_window_batched(
+    T* vm, T bb, const uint8_t* fired_in, uint8_t* fired_out, size_t b,
+    int py, int px, int ch, int h, int w, int c, int hh, int hw, int pool,
+    V v_t) {
+  const int wp = w + 2 * hw;
+  const int y0 = py * pool, x0 = px * pool;
+  const int ny = min(pool, h - y0), nx = min(pool, w - x0);
+  T* v0 = vm + (((b * (h + 2 * hh) + y0 + hh) * wp + x0 + hw) * c + ch);
+  const size_t f0 = ((b * h + y0) * w + x0) * c + ch;
+  if (pool == 1) {  // no pool: the window is the neuron
+    const uint8_t f = fired_in[f0];
+    const T nv = sat_add(*v0, bb);
+    *v0 = nv;
+    const uint8_t s = (nv > v_t) || f != 0;
+    fired_out[f0] = s;
+    return s;
+  }
+  bool any = false;
+  if (pool <= kEmitWindow) {
+    T v[kEmitWindow][kEmitWindow];
+    uint8_t f[kEmitWindow][kEmitWindow];
+#pragma unroll
+    for (int dy = 0; dy < kEmitWindow; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < kEmitWindow; ++dx)
+        if (dy < ny && dx < nx) {
+          v[dy][dx] = v0[(dy * wp + dx) * c];
+          f[dy][dx] = fired_in[f0 + (dy * w + dx) * c];
+        }
+#pragma unroll
+    for (int dy = 0; dy < kEmitWindow; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < kEmitWindow; ++dx)
+        if (dy < ny && dx < nx) {
+          const T nv = sat_add(v[dy][dx], bb);
+          v0[(dy * wp + dx) * c] = nv;
+          const uint8_t s = (nv > v_t) || f[dy][dx] != 0;
+          fired_out[f0 + (dy * w + dx) * c] = s;
+          any |= s;
+        }
+    return any;
+  }
+  for (int dy = 0; dy < ny; ++dy)
+    for (int dx = 0; dx < nx; ++dx) {
+      const T nv = sat_add(v0[(dy * wp + dx) * c], bb);
+      v0[(dy * wp + dx) * c] = nv;
+      const uint8_t s =
+          (nv > v_t) || fired_in[f0 + (dy * w + dx) * c] != 0;
+      fired_out[f0 + (dy * w + dx) * c] = s;
+      any |= s;
+    }
+  return any;
+}
+
+// One CTA of a slab's cluster.  parts = K CTAs per slab, per_part cells
+// each (the last may hold fewer), rounds = ceil(per_part / blockDim.x);
+// the slab image is cut into slices of slice_words 16-byte words.
+template <typename T, typename V>
+__global__ void __launch_bounds__(kEmitMaxThreads) threshold_pool_emit_kernel(
     T* vm, const T* __restrict__ bias, const uint8_t* fired_in,
     uint8_t* fired_out, uint8_t* pooled, uint8_t* masks, int* count,
     int* seg_counts, int q, int h, int w, int c, int hh, int hw, int pool,
-    int kh, int kw, int capacity, V v_t) {
-  extern __shared__ unsigned char smem[];
-  int* warp_pre = reinterpret_cast<int*>(smem);  // [EMIT_WARPS + 1]
-  uint8_t* bits = smem + EMIT_SMEM_HEAD;
-
-  const int slab = blockIdx.x;  // = ch * q + b
+    int kh, int kw, int capacity, V v_t, int parts, int per_part,
+    int rounds, int slice_words) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int part = (int)cluster.block_rank();
+  const int slab = blockIdx.x / parts;  // = ch * q + b
   const int ch = slab / q, b = slab % q;
   const int ph = (h + pool - 1) / pool, pw = (w + pool - 1) / pool;
   const int hb = (ph + kh - 1) / kh, wb = (pw + kw - 1) / kw;
   const int col = hb * wb, nb = kh * kw, n_cells = nb * col;
-  const T bb = bias[ch];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // 1. threshold + pool, one run of interlace-ordered cells per thread
-  const int run = (n_cells + EMIT_THREADS - 1) / EMIT_THREADS;
-  const int n0 = min(tid * run, n_cells), n1 = min(n0 + run, n_cells);
-  int mine = 0;
-  for (int n = n0; n < n1; ++n) {
-    const int s = n / col, r = n % col;
-    const int i = (r / wb) * kh + s / kw, j = (r % wb) * kw + s % kw;
-    uint8_t any = 0;
-    if (i < ph && j < pw) {
-      any = threshold_window(vm, bb, fired_in, fired_out, b, i, j, ch, h, w,
-                             c, hh, hw, pool, v_t);
-      if (pooled != nullptr) pooled[(((size_t)b * ph + i) * pw + j) * c + ch] = any;
-    }
-    bits[n] = any;
-    mine += any;
-  }
-
-  // 2. exclusive scan of the per-thread counts
-  int incl = mine;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) warp_pre[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int wv = lane < EMIT_WARPS ? warp_pre[lane] : 0;
-    int wi = wv;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, wi, o);
-      if (lane >= o) wi += v;
-    }
-    __syncwarp();
-    if (lane < EMIT_WARPS) warp_pre[lane] = wi - wv;
-    if (lane == 31) warp_pre[EMIT_WARPS] = wi;  // block total
-  }
-  __syncthreads();
-
-  // 3. truncate: keep ranks below min(capacity, h'*w')
-  const int limit = min(capacity, ph * pw);
-  int rank = warp_pre[warp] + incl - mine;
-  for (int n = n0; n < n1; ++n) {
-    if (bits[n]) {
-      bits[n] = rank < limit;
-      ++rank;
-    }
-  }
-  if (tid == 0) count[slab] = warp_pre[EMIT_WARPS];
-  __syncthreads();
-
-  // 4. kept events per column, then every carrier byte of the slab
-  for (int s = tid; s < nb; s += EMIT_THREADS) {
-    int kept = 0;
-    for (int r = 0; r < col; ++r) kept += bits[s * col + r];
-    seg_counts[(size_t)slab * nb + s] = kept;
-  }
   const int ehh = kh / 2, ehw = kw / 2;
   const int hbq = (ph + 2 * ehh + kh - 1) / kh + 2;
   const int wbq = (pw + 2 * ehw + kw - 1) / kw + 2;
   const int slab_cells = nb * hbq * wbq;
-  uint8_t* out = masks + (size_t)slab * slab_cells;
-  for (int m = tid; m < slab_cells; m += EMIT_THREADS) {
-    const int tb = m / (hbq * wbq), r = m % (hbq * wbq);
-    // the column whose centres land in padded bank tb
-    const int si = (tb / kw - ehh + kh) % kh, sj = (tb % kw - ehw + kw) % kw;
-    const int bi = r / wbq - 1 - (si + ehh) / kh;
-    const int bj = r % wbq - 1 - (sj + ehw) / kw;
-    uint8_t v = 0;
-    if (bi >= 0 && bi < hb && bj >= 0 && bj < wb)
-      v = bits[(si * kw + sj) * col + bi * wb + bj];
-    out[m] = v;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  // shared memory: the slab image slice, the (round, warp) counts, this
+  // CTA's total, and (CTA 0) P at every column start
+  uint8_t* image = smem;
+  int* tab = reinterpret_cast<int*>(smem + (size_t)slice_words * 16);
+  int* part_total = tab + rounds * n_warps;
+  int* bnd = part_total + 1;  // [nb + 1]
+  for (int k = tid; k < slice_words; k += blockDim.x)
+    reinterpret_cast<uint4*>(image)[k] = make_uint4(0, 0, 0, 0);
+
+  // 1. threshold + pool one cell per lane per round, interlace order
+  const int n_begin = part * per_part;
+  const int n_end = min(n_begin + per_part, n_cells);
+  const T bb = bias[ch];
+  uint32_t mine = 0;  // bit r: this lane's cell of round r is set
+  for (int r = 0; r < rounds; ++r) {
+    const int n = n_begin + r * blockDim.x + tid;
+    bool bit = false;
+    if (n < n_end) {
+      const int s = n / col, rr = n % col;
+      const int i = (rr / wb) * kh + s / kw, j = (rr % wb) * kw + s % kw;
+      if (i < ph && j < pw) {
+        bit = threshold_window_batched(vm, bb, fired_in, fired_out, b, i, j,
+                                       ch, h, w, c, hh, hw, pool, v_t);
+        if (pooled != nullptr)
+          pooled[(((size_t)b * ph + i) * pw + j) * c + ch] = bit;
+      }
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, bit);
+    if (lane == 0) tab[r * n_warps + warp] = __popc(bal);
+    mine |= (uint32_t)bit << r;
   }
+  __syncthreads();
+
+  // 2. exclusive scan of the (round, warp) counts: the CTA's prefixes
+  if (warp == 0) {
+    int run = 0;
+    for (int base = 0; base < rounds * n_warps; base += 32) {
+      const int idx = base + lane;
+      const int v = idx < rounds * n_warps ? tab[idx] : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += u;
+      }
+      if (idx < rounds * n_warps) tab[idx] = run + incl - v;
+      run += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    if (lane == 0) *part_total = run;
+  }
+  cluster.sync();  // every CTA's total and prefixes are in place
+
+  // 3. this CTA's offset in the slab and the slab's demand
+  int base = 0, total = 0;
+  for (int p = 0; p < parts; ++p) {
+    const int v = *cluster.map_shared_rank(part_total, p);
+    base += p < part ? v : 0;
+    total += v;
+  }
+  const int limit = min(capacity, ph * pw);
+  const int gsh = (int)((uintptr_t)(masks + (size_t)slab * slab_cells) & 15);
+  int* bnd0 = cluster.map_shared_rank(bnd, 0);
+  for (int r = 0; r < rounds; ++r) {
+    const bool bit = (mine >> r) & 1u;
+    const unsigned bal = __ballot_sync(0xffffffffu, bit);
+    const int n = n_begin + r * blockDim.x + tid;
+    const int p = base + tab[r * n_warps + warp] +
+                  __popc(bal & ((1u << lane) - 1u));  // P(n)
+    if (n < n_end && n % col == 0 && n > 0) bnd0[n / col] = p;
+    if (bit && p < limit) {  // kept: into the owner slice of the image
+      const int s = n / col, rr = n % col;
+      const int si = s / kw, sj = s % kw;
+      const int tb = ((si + ehh) % kh) * kw + (sj + ehw) % kw;
+      const int x = (tb * hbq + rr / wb + 1 + (si + ehh) / kh) * wbq +
+                    rr % wb + 1 + (sj + ehw) / kw;
+      const int at = gsh + x, owner = (at >> 4) / slice_words;
+      *cluster.map_shared_rank(image + at - owner * slice_words * 16,
+                               owner) = 1;
+    }
+  }
+  if (part == 0 && tid == 0) {
+    bnd[0] = 0;
+    bnd[nb] = total;
+  }
+  cluster.sync();  // every kept bit and column start has landed
+
+  // 4. CTA 0: demand and kept events per column
+  if (part == 0) {
+    if (tid == 0) count[slab] = total;
+    for (int s = tid; s < nb; s += blockDim.x)
+      seg_counts[(size_t)slab * nb + s] =
+          min(bnd[s + 1], limit) - min(bnd[s], limit);
+  }
+  // 5. this CTA's slice of the slab, in 16-byte stores where whole
+  uint8_t* out = masks + (size_t)slab * slab_cells;
+  uint8_t* aligned = out - gsh;
+  const int words = (gsh + slab_cells + 15) / 16;
+  const int w0 = part * slice_words, w1 = min(w0 + slice_words, words);
+  for (int k = w0 + tid; k < w1; k += blockDim.x) {
+    const uint8_t* src = image + (k - w0) * 16;
+    uint8_t* dst = aligned + 16 * k;
+    if (dst >= out && dst + 16 <= out + slab_cells) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 16; ++e)
+        if (dst + e >= out && dst + e < out + slab_cells) dst[e] = src[e];
+    }
+  }
+}
+
+// The cluster size, cells per CTA, threads and rounds of an emit launch;
+// false when one slab holds more cells than a cluster takes.
+bool emit_config(int slabs, int n_cells, int* parts, int* per_part,
+                 int* threads, int* rounds) {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long cap = (long)kEmitMaxThreads * kEmitMaxRounds;
+  int k = 1;
+  // CTAs for more than half the SMs, each with at least a warp of cells;
+  // more only as the map needs
+  while (k < kEmitMaxCluster && 2L * slabs * k <= n_sm &&
+         (n_cells + k) / (k + 1) >= 32)
+    ++k;
+  while (k < kEmitMaxCluster && (n_cells + k - 1) / k > cap) ++k;
+  const int per = (n_cells + k - 1) / k;
+  if (per > cap) return false;
+  const int t = per < kEmitMaxThreads ? (per + 31) / 32 * 32 : kEmitMaxThreads;
+  *parts = k;
+  *per_part = per;
+  *threads = t;
+  *rounds = (per + t - 1) / t;
+  return true;
 }
 
 template <typename T, typename V>
@@ -236,33 +391,54 @@ cudaError_t launch_emit(void* vm, const void* bias, const void* fired_in,
                         void* count, void* seg_counts, int q, int h, int w,
                         int c, int hh, int hw, int pool, int kh, int kw,
                         int capacity, V v_t, cudaStream_t stream) {
-  const unsigned ctas = (unsigned)q * c;
-  if (ctas == 0) return cudaSuccess;
-  const size_t smem = EMIT_SMEM_HEAD + emit_cells(h, w, pool, kh, kw);
+  const int slabs = q * c;
+  if (slabs == 0) return cudaSuccess;
+  const int n_cells = emit_cells(h, w, pool, kh, kw);
+  int parts, per_part, threads, rounds;
+  if (!emit_config(slabs, n_cells, &parts, &per_part, &threads, &rounds))
+    return cudaErrorInvalidValue;
+  const int ph = (h + pool - 1) / pool, pw = (w + pool - 1) / pool;
+  const int hbq = (ph + 2 * (kh / 2) + kh - 1) / kh + 2;
+  const int wbq = (pw + 2 * (kw / 2) + kw - 1) / kw + 2;
+  const int slab_cells = kh * kw * hbq * wbq;
+  const int slice_words = ((slab_cells + 30) / 16 + parts - 1) / parts;
+  const size_t smem = (size_t)slice_words * 16 +
+                      4 * ((size_t)rounds * (threads / 32) + 2 + kh * kw);
   auto kern = threshold_pool_emit_kernel<T, V>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<ctas, EMIT_THREADS, smem, stream>>>(
-      static_cast<T*>(vm), static_cast<const T*>(bias),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)slabs * parts);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(
+      &cfg, kern, static_cast<T*>(vm), static_cast<const T*>(bias),
       static_cast<const uint8_t*>(fired_in), static_cast<uint8_t*>(fired_out),
       static_cast<uint8_t*>(pooled), static_cast<uint8_t*>(masks),
       static_cast<int*>(count), static_cast<int*>(seg_counts), q, h, w, c,
-      hh, hw, pool, kh, kw, capacity, v_t);
-  return cudaGetLastError();
+      hh, hw, pool, kh, kw, capacity, v_t, parts, per_part, rounds,
+      slice_words);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one emit CTA for an (h, w) map, pool window
-// `pool` (1 = none) and a kh x kw emit window.
-size_t threshold_pool_emit_smem_bytes(int h, int w, int pool, int kh,
-                                      int kw) {
-  return EMIT_SMEM_HEAD + (size_t)emit_cells(h, w, pool, kh, kw);
+// Most interlace cells one emit slab may hold: (n_banks, HB, WB) of the
+// pooled map under the consumer's window.
+int threshold_pool_emit_max_cells(void) {
+  return kEmitMaxCluster * kEmitMaxThreads * kEmitMaxRounds;
 }
 
 // Emit mode.  vm, bias, fired_in, fired_out, pooled as in

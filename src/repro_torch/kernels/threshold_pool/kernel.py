@@ -23,8 +23,6 @@ from .ref import threshold_pool_tile_ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: shared memory one CTA may use on Hopper (227 KB)
-_SMEM_LIMIT = 232448
 
 
 def _lib():
@@ -36,8 +34,8 @@ def _lib():
         lib.threshold_pool_emit.argtypes = (
             [_P] * 8 + [_I] * 10 + [ctypes.c_float, _I, _I, _P])
         lib.threshold_pool_emit.restype = _I
-        lib.threshold_pool_emit_smem_bytes.argtypes = [_I] * 5
-        lib.threshold_pool_emit_smem_bytes.restype = ctypes.c_size_t
+        lib.threshold_pool_emit_max_cells.argtypes = []
+        lib.threshold_pool_emit_max_cells.restype = _I
         lib._typed = True
     return lib
 
@@ -203,11 +201,12 @@ def threshold_pool_cuda_emit(
                                      device=dev)
     lib = _lib()
     kh, kw = emit_geometry.kh, emit_geometry.kw
-    smem = lib.threshold_pool_emit_smem_bytes(h, w, pool or 1, kh, kw)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"emission from a {ph}x{pw} map needs {smem} B of "
-                         f"shared memory per CTA, over the {_SMEM_LIMIT} B "
-                         f"a CTA may use")
+    cells = nb * -(-ph // kh) * -(-pw // kw)
+    if cells > lib.threshold_pool_emit_max_cells():
+        raise ValueError(f"emission from a {ph}x{pw} map walks {cells} "
+                         f"interlace cells per slab, over the "
+                         f"{lib.threshold_pool_emit_max_cells()} one "
+                         f"thread block cluster takes")
     status = lib.threshold_pool_emit(
         vm_padded.data_ptr(), bias.data_ptr(), fired.data_ptr(),
         fired_out.data_ptr(),

@@ -132,48 +132,79 @@ def test_launch_counters_count_kernel_launches_only(cuda):
 @pytest.mark.parametrize("k", [1, 3, 5])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
 def test_banked_and_emit_kernels_equal_plain_versions(cuda, dtype, k):
-    """event_conv_banked over a truncating carrier (32 input channels,
-    int rails reached) and threshold_pool_emit at the FULL conv0 -> conv1
-    shapes, pool None/3, capacities 16 and 256, into reused buffers."""
+    """event_conv_banked over carriers of 32 input channels (int rails
+    reached): truncating, empty, all set and sparse, at the conv1 tile
+    (30x30x8) for B=8 and one sample and at the conv2 tile (12x12x5),
+    fresh and in place; threshold_pool_emit at the FULL conv0 -> conv1
+    shapes and the conv1 -> conv2 handoff (pool 3, a 10x10 map), pool
+    None/3, capacities 1, 16, 256, the demand and above the map, for B=8
+    and one sample and C=5, relaunched into buffers filled with stale
+    bits."""
     g = torch.Generator().manual_seed(k)
     geom = ConvGeometry(k, k)
     hh = k // 2
     big = {torch.float32: 1.0, torch.int16: 9000.0, torch.int8: 40.0}[dtype]
-    vm = (torch.randn((8, 28 + 2 * hh, 28 + 2 * hh, 8), generator=g)
-          * big).to(dtype).to(cuda)
-    spikes = (torch.rand((8, 1, 28, 28, 32), generator=g) < 0.5).to(cuda)
-    ho = taeq.build_fused_handoff(spikes, 256, geom)
-    kern = (torch.randn((k, k, 32, 8), generator=g) * big).to(dtype).to(cuda)
-    taps = tap_matrix(kern).permute(2, 0, 1, 3).contiguous()
-    got = event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom)
-    assert torch.equal(got, event_conv_ref_banked(vm, ho.masks[0], taps,
-                                                  geom))
-    fired = (torch.rand((8, 28, 28, 8), generator=g) < 0.1).to(cuda)
-    bias = vm[0, 0, 0].clone()
-    v_t = 0.5 if dtype == torch.float32 else 20
-    for pool in (None, 3):
-        for cap in (16, 256):
-            a, b = vm.clone(), vm.clone()
-            ka = threshold_pool_cuda_emit(a, bias, fired, v_t=v_t, pool=pool,
-                                          halo=(hh, hh), emit_capacity=cap,
-                                          emit_geometry=geom)
+
+    def banked(q, side, c, density, cap):
+        vm = (torch.randn((q, side + 2 * hh, side + 2 * hh, c), generator=g)
+              * big).to(dtype).to(cuda)
+        spikes = (torch.rand((q, 1, side, side, 32), generator=g)
+                  < density).to(cuda)
+        ho = taeq.build_fused_handoff(spikes, cap, geom)
+        kern = (torch.randn((k, k, 32, c), generator=g)
+                * big).to(dtype).to(cuda)
+        taps = tap_matrix(kern).permute(2, 0, 1, 3).contiguous()
+        want = event_conv_ref_banked(vm, ho.masks[0], taps, geom)
+        got = event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (q, side, c, density, cap)
+        event_conv_cuda_banked(vm, ho.masks[0], taps, geometry=geom, out=vm)
+        torch.cuda.synchronize()
+        assert torch.equal(vm, want), (q, side, c, density, cap)
+
+    for q in (8, 1):
+        for density, cap in ((0.5, 256), (0.0, 256), (1.0, 28 * 28),
+                             (0.05, 256)):
+            banked(q, 28, 8, density, cap)
+        banked(q, 10, 5, 0.9, 100)
+
+    def emit(q, side, c, pool, cap):
+        vm = (torch.randn((q, side + 2 * hh, side + 2 * hh, c), generator=g)
+              * big).to(dtype).to(cuda)
+        fired = (torch.rand((q, side, side, c), generator=g) < 0.1).to(cuda)
+        bias = vm[0, 0, 0].clone()
+        v_t = 0.5 if dtype == torch.float32 else 20
+        args = dict(v_t=v_t, pool=pool, halo=(hh, hh), emit_geometry=geom)
+        b = vm.clone()
+        kb = threshold_pool_tile_ref(b, bias, fired, **args,
+                                     emit_capacity=cap)
+        demand = int(kb[3].max())
+        caps = {1, 16, cap, max(demand, 1), side * side + 1}
+        for cp in sorted(caps):
+            want = threshold_pool_tile_ref(vm.clone(), bias, fired, **args,
+                                           emit_capacity=cp)
+            a = vm.clone()
+            ka = threshold_pool_cuda_emit(a, bias, fired, **args,
+                                          emit_capacity=cp)
             # a second launch into the same buffers, filled with stale bits
             for x in ka:
                 if x is not None:
                     x.fill_(1)
             a2 = vm.clone()
             ka2 = threshold_pool_cuda_emit(
-                a2, bias, fired, v_t=v_t, pool=pool, halo=(hh, hh),
-                emit_capacity=cap, emit_geometry=geom, fired_out=ka[0],
+                a2, bias, fired, **args, emit_capacity=cp, fired_out=ka[0],
                 pooled_out=ka[1], masks_out=ka[2], count_out=ka[3],
                 seg_counts_out=ka[4])
-            kb = threshold_pool_tile_ref(b, bias, fired, v_t=v_t, pool=pool,
-                                         halo=(hh, hh), emit_capacity=cap,
-                                         emit_geometry=geom)
             torch.cuda.synchronize()
             assert torch.equal(a, b) and torch.equal(a2, b)
-            for x, y in zip(ka2, kb):
-                assert (x is None and y is None) or torch.equal(x, y)
+            for x, y in zip(ka2, want):
+                assert (x is None and y is None) or torch.equal(x, y), (
+                    q, side, c, pool, cp)
+
+    for q in (8, 1):
+        for pool in (None, 3):
+            emit(q, 28, 8, pool, 256)
+        emit(q, 28, 5, 3, 100)
 
 
 @pytest.mark.gpu
