@@ -2,6 +2,12 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-threshold OTHER/threshold_pool.cu ...
+
+The second form only builds the given base-mode threshold sources beside
+this checkout's, holds each against the plain version and times them in
+turns at the FULL forward's shapes (another commit's kernel, or a probe
+build).
 
 Phases (any failure exits non-zero before the result line):
 
@@ -11,8 +17,10 @@ Phases (any failure exits non-zero before the result line):
 3. hold each kernel against its plain PyTorch version on the card with
    ``torch.equal``: FULL-path shapes, k in {1, 3, 5}, float32/int16/int8,
    truncated and segment-padded queues, a tile over 48 KB, repeated
-   coordinates in an interlaced group; the emit-mode threshold kernel at
-   the conv0 -> conv1 tiles (pool None) and the conv1 -> conv2 handoff
+   coordinates in an interlaced group; the base-mode threshold kernel at
+   the three shapes of the FULL forward (B=8 and one sample, k in {1, 3,
+   5}), on views at odd offsets, with ``fired_out`` = ``fired`` and on the
+   int rails; the emit-mode threshold kernel at the conv0 -> conv1 tiles (pool None) and the conv1 -> conv2 handoff
    (pool 3) for B=8 and one sample and with C=5, at capacities from 1 to
    above the map and at the demand, relaunched into buffers filled with
    stale bits; the banked conv over truncating, empty, all-set and sparse
@@ -56,7 +64,10 @@ Phases (any failure exits non-zero before the result line):
    bound, its plain version and a library yardstick (each queue conv unit
    per (block 0, t) launch at conv1 over all 32 input channels, beside
    ``F.conv2d`` of the same 32 channels' kept events; the banked conv
-   also for one sample and at conv2, the emit kernel at both handoffs);
+   also for one sample and at conv2, the emit kernel at both handoffs, the
+   base threshold kernel at conv0, conv1 and conv2 (B=8) and conv1 for one
+   sample, beside the launch floor: a one-element ``add_`` in the same
+   graph harness);
    then end-to-end samples/s of every path and a ``torch.profiler``
    breakdown of one forward of the serve, event_par=1, fused and
    banked-cuda plans and of one single-sample forward under the serve
@@ -248,25 +259,7 @@ def check_kernels(dev) -> dict:
          event_conv_ref_interlaced_batched(vm, coords.to(dev), valid.to(dev),
                                            kern, event_par=4))
 
-    # threshold unit: FULL-path tiles (28x28, ragged pool 3), k in {1,3,5}
-    for k in (1, 3, 5):
-        hh = k // 2
-        for dtype in dtypes:
-            for pool in (None, 3):
-                vm = rand_tile(g, (B, 28 + 2 * hh, 28 + 2 * hh, 8), dtype, dev)
-                bias = rand_kernel(g, (8,), dtype, dev)
-                fired = (torch.rand((B, 28, 28, 8), generator=g) < 0.1).to(dev)
-                v_t = 0.5 if dtype == torch.float32 else 20
-                vm_k, vm_r = vm.clone(), vm.clone()
-                sk, pk = threshold_pool_cuda_batched(
-                    vm_k, bias, fired, v_t=v_t, pool=pool, halo=(hh, hh))
-                sr, pr = threshold_pool_tile_ref(
-                    vm_r, bias, fired, v_t=v_t, pool=pool, halo=(hh, hh))
-                tag = f"k={k} {dtype} pool={pool}"
-                same(f"threshold_pool vm {tag}", vm_k, vm_r)
-                same(f"threshold_pool spikes {tag}", sk, sr)
-                if pool is not None:
-                    same(f"threshold_pool pooled {tag}", pk, pr)
+    check_threshold(g, dev, same)
     check_banked_and_emit(g, dev, same)
     check_single(g, dev, same)
     check_seq_gather(g, dev, same)
@@ -274,6 +267,87 @@ def check_kernels(dev) -> dict:
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
+
+
+def rail_tile(g, shape, dtype, dev):
+    """An int tile (or bias) of values at and next to its dtype's rails."""
+    import torch
+    info = torch.iinfo(dtype)
+    vals = torch.tensor([info.min, info.min + 1, -1, 0, 1, info.max - 1,
+                         info.max], dtype=dtype)
+    return vals[torch.randint(0, len(vals), shape, generator=g)].to(dev)
+
+
+def check_threshold(g, dev, same) -> None:
+    """Phase 3, the base-mode threshold kernel: the three shapes the FULL
+    forward launches (conv0 28x28x8, conv1 28x28x8 with the ragged pool 3,
+    conv2 10x10x5) at B=8 and one sample, k in {1, 3, 5} (halo k // 2),
+    f32/i16/i8; then tiles, biases and latches that are views at odd
+    offsets (the kernel's one-channel path), ``fired_out`` passed as
+    ``fired`` itself, and int tiles and biases on their rails.  vm (whole
+    tiles: the plain version leaves the halo as it was), spikes and pooled
+    equal the plain version."""
+    import torch
+
+    from repro_torch.kernels.threshold_pool.kernel import \
+        threshold_pool_cuda_batched
+    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+
+    def at_offset(t, off):
+        """A contiguous copy of ``t`` that starts ``off`` elements into its
+        storage."""
+        store = torch.empty(t.numel() + off, dtype=t.dtype, device=dev)
+        view = store[off:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def check(tag, vm, bias, fired, pool, hh, *, off=0, alias=False):
+        v_t = 0.5 if vm.dtype == torch.float32 else 20
+        vm_r = vm.clone()
+        sr, pr = threshold_pool_tile_ref(vm_r, bias, fired.clone(), v_t=v_t,
+                                         pool=pool, halo=(hh, hh))
+        vm_k, b_k, f_k = (at_offset(t, off) if off else t.clone()
+                          for t in (vm, bias, fired))
+        sk, pk = threshold_pool_cuda_batched(
+            vm_k, b_k, f_k, v_t=v_t, pool=pool, halo=(hh, hh),
+            fired_out=f_k if alias else None)
+        if alias and sk.data_ptr() != f_k.data_ptr():
+            fail(f"threshold_pool {tag}: fired_out is not fired")
+        tag = (f"{tag} Q={vm.shape[0]} {tuple(vm.shape[1:])} {vm.dtype} "
+               f"pool={pool}")
+        same(f"threshold_pool vm {tag}", vm_k, vm_r)
+        same(f"threshold_pool spikes {tag}", sk, sr)
+        if pool is not None:
+            same(f"threshold_pool pooled {tag}", pk, pr)
+
+    dtypes = (torch.float32, torch.int16, torch.int8)
+    shapes = (("conv0", 28, 8, None), ("conv1", 28, 8, 3),
+              ("conv2", 10, 5, None))
+    for k in (1, 3, 5):
+        hh = k // 2
+        for dtype in dtypes:
+            for q in (B, 1):
+                for name, side, c, pool in shapes:
+                    vm = rand_tile(g, (q, side + 2 * hh, side + 2 * hh, c),
+                                   dtype, dev)
+                    bias = rand_kernel(g, (c,), dtype, dev)
+                    fired = (torch.rand((q, side, side, c), generator=g)
+                             < 0.1).to(dev)
+                    check(f"{name} k={k}", vm, bias, fired, pool, hh)
+    for dtype in dtypes:
+        for name, side, c, pool in shapes:
+            vm = rand_tile(g, (B, side + 2, side + 2, c), dtype, dev)
+            bias = rand_kernel(g, (c,), dtype, dev)
+            fired = (torch.rand((B, side, side, c), generator=g) < 0.1).to(dev)
+            check(f"{name} at offset 1", vm, bias, fired, pool, 1, off=1)
+            check(f"{name} at offset 3", vm, bias, fired, pool, 1, off=3)
+            check(f"{name} fired_out=fired", vm, bias, fired, pool, 1,
+                  alias=True)
+            if dtype != torch.float32:
+                check(f"{name} on the rails",
+                      rail_tile(g, vm.shape, dtype, dev),
+                      rail_tile(g, (c,), dtype, dev), fired, pool, 1,
+                      alias=True)
 
 
 def check_banked_and_emit(g, dev, same) -> None:
@@ -878,9 +952,6 @@ def timing(dev, cfg, params, imgs, plans, card):
         event_conv_cuda_batched, event_conv_cuda_interlaced_batched)
     from repro_torch.kernels.event_conv.ref import (
         event_conv_ref_batched, event_conv_ref_interlaced_batched)
-    from repro_torch.kernels.threshold_pool.kernel import \
-        threshold_pool_cuda_batched
-    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
 
     serve_plan = plans["serve plan (interlaced)"]
     seq_plan = plans["event_par=1 (sequential)"]
@@ -954,27 +1025,6 @@ def timing(dev, cfg, params, imgs, plans, card):
     b_seq, by_seq = conv_bound(seq_slabs)
     b_int, by_int = conv_bound(int_slabs)
 
-    fired = torch.zeros((B, h, w, cb), dtype=torch.bool, device=dev)
-    bias = params["conv1"]["b"][:cb].contiguous()
-    vm_t = torch.randn((B, hp, wp, cb),
-                       generator=torch.Generator().manual_seed(3)).to(dev)
-    oh, ow = -(-h // lp1.pool), -(-w // lp1.pool)
-    sp_out = torch.empty_like(fired)
-    pooled = torch.empty((B, oh, ow, cb), dtype=torch.bool, device=dev)
-    halo = lp1.geometry.halo
-    def thr_k():
-        threshold_pool_cuda_batched(vm_t, bias, fired, v_t=cfg.v_t,
-                                    pool=lp1.pool, halo=halo,
-                                    fired_out=sp_out, pooled_out=pooled)
-
-    t_thr = graph_time_ms(lambda: [thr_k() for _ in range(50)]) / 50
-    h_thr = cuda_time_ms(thr_k, 200)
-    p_thr = cuda_time_ms(lambda: threshold_pool_tile_ref(
-        vm_t, bias, fired, v_t=cfg.v_t, pool=lp1.pool, halo=halo), 20)
-    cells = B * h * w * cb
-    thr_bytes = cells * (4 + 4 + 1 + 1) + cb * 4 + B * oh * ow * cb
-    b_thr = max(thr_bytes / PEAK_BYTES, 3 * cells / PEAK_F32) * 1e3
-
     def forward_fn(plan):
         def run():
             snn_apply_batched(params, encode_input(imgs.to(dev), cfg), cfg,
@@ -1014,9 +1064,6 @@ def timing(dev, cfg, params, imgs, plans, card):
           f"{c_in} c_in per (block 0, t) launch, f32): device {t_seq:.5f} "
           f"ms/launch, host-bound {h_seq:.5f}, plain {p_seq:.4f}, bound "
           f"{b_seq:.6f} ({by_seq}), conv2d {c_in} c_in {t_lib32:.5f} {tag}")
-    print(f"timing threshold_pool (conv1, B={B}, {h}x{w}x{cb}, pool "
-          f"{lp1.pool}, f32): device {t_thr:.5f} ms/launch, host-bound "
-          f"{h_thr:.5f}, plain {p_thr:.4f}, bound {b_thr:.6f} (bytes) {tag}")
     print(f"timing end-to-end csnn_paper.FULL B={B}: serve plan "
           f"{sps_int:.1f} samples/s, event_par=1 {sps_seq:.1f} samples/s, "
           f"fused-handoff {sps_fused:.1f} samples/s, banked-cuda "
@@ -1034,12 +1081,141 @@ def timing(dev, cfg, params, imgs, plans, card):
              replaces=ref + "event_conv/kernel.py:241", ms=t_seq,
              plain_ms=p_seq, bound_ms=b_seq, bound_by=by_seq,
              library_ms=t_lib32),
-        dict(name="threshold_pool", route="cuda",
-             source=src + "threshold_pool.cu",
-             replaces=ref + "threshold_pool/kernel.py:68", ms=t_thr,
-             plain_ms=p_thr, bound_ms=b_thr, bound_by="bytes",
-             library_ms=None),
-    ] + fused
+    ] + time_threshold(dev, card) + fused
+
+
+# The base threshold kernel's launches in a FULL forward: (label, Q, map
+# side, channels, pool); tiles with a halo of 1 (3x3 convs).
+THRESHOLD_SHAPES = (("conv1, B=8", B, 28, 8, 3), ("conv0, B=8", B, 28, 8, None),
+                    ("conv2, B=8", B, 10, 5, None),
+                    ("conv1, one sample", 1, 28, 8, 3))
+
+
+def threshold_launch(dev, q, side, c, pool):
+    """One base threshold launch at a FULL shape (f32 tile and bias from
+    seed 3, an empty latch, outputs preallocated as the scheduler does);
+    returns (launch, plain version, bound ms)."""
+    import torch
+
+    from repro_torch.kernels.threshold_pool.kernel import \
+        threshold_pool_cuda_batched
+    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+
+    g = torch.Generator().manual_seed(3)
+    vm = torch.randn((q, side + 2, side + 2, c), generator=g).to(dev)
+    bias = torch.randn((c,), generator=g).to(dev)
+    fired = torch.zeros((q, side, side, c), dtype=torch.bool, device=dev)
+    oh = -(-side // (pool or 1))
+    spikes = torch.empty_like(fired)
+    pooled = (None if pool is None else
+              torch.empty((q, oh, oh, c), dtype=torch.bool, device=dev))
+    args = dict(v_t=0.5, pool=pool, halo=(1, 1))
+
+    def launch():
+        threshold_pool_cuda_batched(vm, bias, fired, **args,
+                                    fired_out=spikes, pooled_out=pooled)
+
+    def plain():
+        threshold_pool_tile_ref(vm, bias, fired, **args)
+
+    # each neuron's vm read and written, its latch read and spike written;
+    # the bias and the pooled map; bias add, compare and latch OR each
+    cells = q * side * side * c
+    nbytes = cells * (2 * 4 + 2) + c * 4 + (0 if pooled is None
+                                            else pooled.numel())
+    bound = max(nbytes / PEAK_BYTES, 3 * cells / PEAK_F32) * 1e3
+    return launch, plain, bound
+
+
+def launch_floor_ms() -> float:
+    """Device ms per launch of a one-element ``add_`` in the same graph
+    harness: the floor a small kernel's time is read against."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    return graph_time_ms(lambda: [x.add_(1) for _ in range(50)]) / 50
+
+
+def time_threshold(dev, card) -> list:
+    """Phase 7, the base threshold kernel at each shape of
+    ``THRESHOLD_SHAPES``: device ms per launch (a CUDA graph of 50
+    launches), host-bound and plain ms, the bound; and the launch floor.
+    Returns one kernel record per shape."""
+    tag = f"[{card}]"
+    floor = launch_floor_ms()
+    print(f"timing launch floor (one-element add_, CUDA graph of 50): "
+          f"device {floor:.5f} ms/launch {tag}")
+    records = []
+    for label, q, side, c, pool in THRESHOLD_SHAPES:
+        launch, plain, bound = threshold_launch(dev, q, side, c, pool)
+        t = graph_time_ms(lambda: [launch() for _ in range(50)]) / 50
+        h_t = cuda_time_ms(launch, 200)
+        p_t = cuda_time_ms(plain, 20)
+        print(f"timing threshold_pool ({label}, {side}x{side}x{c}, pool "
+              f"{pool}, f32): device {t:.5f} ms/launch, host-bound "
+              f"{h_t:.5f}, plain {p_t:.4f}, bound {bound:.6f} (bytes), "
+              f"floor {floor:.5f} {tag}")
+        name = "threshold_pool" + ("" if label == "conv1, B=8"
+                                   else f" ({label})")
+        records.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/threshold_pool.cu",
+            replaces="src/repro/kernels/threshold_pool/kernel.py:68", ms=t,
+            plain_ms=p_t, bound_ms=bound, bound_by="bytes", library_ms=None))
+    return records
+
+
+def compare_threshold(sources: list[str]) -> int:
+    """``--compare-threshold A.cu [B.cu ...]``: build each given
+    ``threshold_pool.cu`` (another checkout's, or a probe build) beside
+    this checkout's, hold each against the plain version as phase 3 does,
+    and time them in turns through the same wrapper at every shape of
+    ``THRESHOLD_SHAPES``, given sources first and then this checkout's,
+    forward and back (A, ..., this, this, ..., A)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import runtime
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    out = runtime.build_dir() / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for i, src in enumerate(sources):
+        so = out / f"libthreshold_pool_{i}.so"
+        subprocess.run([runtime._nvcc(), *runtime.NVCC_FLAGS, "-o", str(so),
+                        src], check=True, capture_output=True, text=True)
+        libs[src] = ctypes.CDLL(str(so))
+    libs["this checkout"] = runtime.load("threshold_pool")
+    for name, lib in libs.items():
+        runtime._LIBS["threshold_pool"] = lib
+
+        def same(what, a, b):
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"{name}: {what}: kernel != plain version")
+        check_threshold(torch.Generator().manual_seed(11), dev, same)
+    print("compare: every build equal to the plain version (phase 3's "
+          "threshold checks)")
+    order = list(libs) + list(libs)[::-1]
+    tag = f"[{card}]"
+    print(f"timing launch floor (one-element add_, CUDA graph of 50): "
+          f"device {launch_floor_ms():.5f} ms/launch {tag}")
+    for label, q, side, c, pool in THRESHOLD_SHAPES:
+        times = {name: [] for name in libs}
+        for name in order:
+            runtime._LIBS["threshold_pool"] = libs[name]
+            launch, _, bound = threshold_launch(dev, q, side, c, pool)
+            times[name].append(graph_time_ms(
+                lambda: [launch() for _ in range(50)]) / 50)
+        for name, ts in times.items():
+            print(f"compare threshold_pool ({label}, {side}x{side}x{c}, pool "
+                  f"{pool}, f32) {name}: device {statistics.mean(ts):.5f} "
+                  f"ms/launch (runs {', '.join(f'{t:.5f}' for t in ts)}), "
+                  f"bound {bound:.6f} {tag}")
+    return 0
 
 
 def timing_fused(dev, cfg, params, spikes, fplan, card) -> list:
@@ -1318,6 +1494,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    if sys.argv[1:2] == ["--compare-threshold"]:
+        return compare_threshold(sys.argv[2:])
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 

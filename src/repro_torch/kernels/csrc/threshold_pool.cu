@@ -16,12 +16,50 @@
 // nor written.  fired_in / fired_out are (Q, H, W, C) bytes and may alias;
 // pooled is (Q, ceil(H/p), ceil(W/p), C) bytes, or null without a pool.
 //
-// What bounds it on the card: bytes.  It reads and writes every neuron
-// once and does a handful of operations on each, far below the ratio at
-// which the ALUs would matter.  One thread owns one pooled cell and one
-// channel, walks its p x p window, and keeps the OR in a register, so the
-// spike map is never re-read; channels are innermost, so neighbouring
-// threads touch neighbouring bytes.
+// Base mode.  What bounds it on the card: nominally bytes, ~10 bytes and
+// 3 operations per neuron (0.5 MB, 0.15 us at the FULL conv0/conv1 shapes
+// at B=8); in practice latency.  The tiles were just written by the conv
+// unit and sit in L2, a launch covers 4,000-50,000 neurons, and so the
+// time is the launch plus the chain of dependent steps each CTA waits on.
+// The first design gave one thread a pooled cell and walked its p x p
+// window load, store, load, store: fired_in and fired_out may alias, so
+// the compiler could not move a load above the store before it, and at
+// pool 3 each thread waited on nine round trips, with 6,400 threads (25
+// CTAs) at B=8 and 64-bit index division.
+//
+// This design:
+// * one thread owns V consecutive channels of one pixel (V = 4 as one
+//   16-byte float4 / 8-byte short4 / 4-byte char4 of vm and one 4-byte
+//   word of fired, where C % 4 == 0 and every base pointer is aligned;
+//   else V = 1, the scalar path of the same kernel, as at conv2's C = 5 or
+//   a view at an odd offset).  It issues every load first (vm, fired_in,
+//   bias through the read-only path), then stores vm and fired_out: one
+//   round trip per thread.  A neuron is read and written by one thread at
+//   one index, so fired_out may alias fired_in with no ordering between
+//   threads.
+// * a CTA owns whole rows of one tile: threads (channel group, pixel, row)
+//   with channels innermost, so a warp covers contiguous bytes.  With a
+//   pool it owns whole pool bands (p rows) of a column range; each thread
+//   puts its spike bytes into shared memory, and after one barrier the
+//   threads OR each pooled cell's p x p words there (4 channels at a time,
+//   all reads of a window up to 3 x 3 at once) and store pooled
+//   coalesced.  The spike map is not re-read from global memory.  A
+//   thread stores the vm and spikes of its (first) access after the
+//   barrier, where the compiler issues those reads ahead of the stores:
+//   stores issued before the barrier held the reads behind them (in
+//   clock probe builds the time from the barrier to the end of the OR
+//   was most of a CTA's time).  Without a pool (a compile-time case)
+//   there is no shared memory and no barrier.
+// * the grid is sized from the SM count: without a pool, rows per CTA grow
+//   until the CTAs fit on the SMs (conv0 at B=8: 112 CTAs of 2 rows); with
+//   a pool, each band is split into column ranges until the bands' CTAs
+//   cover the SMs (one sample at conv1: 100 CTAs of one pooled cell).
+// * a CTA holds at least one pooled cell's p x p x C spike bytes in
+//   shared memory, so a window of more than 227 KB of them is refused
+//   (cudaErrorInvalidValue); no config comes near it.
+// * index math is 32-bit (the wrapper refuses 2**31 elements); a CTA's
+//   tile and band come from one division of blockIdx, a thread's
+//   coordinates from its thread index, and no thread divides per neuron.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -39,64 +77,225 @@ __device__ __forceinline__ int8_t sat_add(int8_t a, int8_t b) {
   return (int8_t)max(-128, min(127, w));
 }
 
-// Bias, threshold and latch over the p x p window of pooled cell (py, px)
-// of tile qq, channel ch, in place; returns the window's OR.
+constexpr int kBaseMaxThreads = 1024;
+constexpr int kBaseMaxRows = 64;          // blockDim.z
+constexpr int kBaseSmem = 48 * 1024;      // pool bands held per CTA
+constexpr int kBaseMaxSmem = 232448;      // with the opt-in attribute
+constexpr int kBaseWindow = 3;            // pool windows ORed all at once
+
+// Four consecutive channels as one access: vm, and their spike bytes.
+__device__ __forceinline__ float4 sat_add(float4 a, float4 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w};
+}
+__device__ __forceinline__ short4 sat_add(short4 a, short4 b) {
+  return {sat_add(a.x, b.x), sat_add(a.y, b.y), sat_add(a.z, b.z),
+          sat_add(a.w, b.w)};
+}
+__device__ __forceinline__ char4 sat_add(char4 a, char4 b) {
+  return {sat_add(a.x, b.x), sat_add(a.y, b.y), sat_add(a.z, b.z),
+          sat_add(a.w, b.w)};
+}
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int16_t> { using type = short4; };
+template <> struct Vec4<int8_t> { using type = char4; };
+
+// spike = (vm > v_t) OR fired, per channel
 template <typename T, typename V>
-__device__ __forceinline__ uint8_t threshold_window(
-    T* vm, T b, const uint8_t* fired_in, uint8_t* fired_out, size_t qq,
-    int py, int px, int ch, int h, int w, int c, int hh, int hw, int pool,
-    V v_t) {
+__device__ __forceinline__ uint8_t fire(T nv, uint8_t f, V v_t) {
+  return (nv > v_t) || f != 0;
+}
+template <typename T4, typename V>
+__device__ __forceinline__ uchar4 fire(T4 nv, uchar4 f, V v_t) {
+  return make_uchar4(fire(nv.x, f.x, v_t), fire(nv.y, f.y, v_t),
+                     fire(nv.z, f.z, v_t), fire(nv.w, f.w, v_t));
+}
+// the spike bytes of one access as one word, for the pool's OR
+template <typename S> struct Word { using type = uint32_t; };
+template <> struct Word<uint8_t> { using type = uint8_t; };
+
+// One CTA's rows [y0, y0 + ny) x columns [x0, x0 + nx) of tile qq, A = the
+// vm access of sizeof(S) channels, S = their spike bytes.
+template <typename T, typename V, bool POOL, typename A, typename S>
+__device__ __forceinline__ void threshold_cells(
+    T* vm, const T* __restrict__ bias, const uint8_t* fired_in,
+    uint8_t* fired_out, uint8_t* pooled, uint8_t* spk, int qq, int g,
+    int y0, int x0, int ny, int nx, int h, int w, int c, int hh, int hw,
+    int pool, int ph, int pw, int cols, V v_t) {
+  constexpr int n = sizeof(S);
   const int hp = h + 2 * hh, wp = w + 2 * hw;
-  uint8_t any = 0;
-  const int y_end = min(py * pool + pool, h), x_end = min(px * pool + pool, w);
-  for (int y = py * pool; y < y_end; ++y) {
-    for (int x = px * pool; x < x_end; ++x) {
-      const size_t vi = ((qq * hp + y + hh) * wp + x + hw) * c + ch;
-      const T v = sat_add(vm[vi], b);
-      vm[vi] = v;
-      const size_t fi = ((qq * h + y) * w + x) * c + ch;
-      const uint8_t s = (v > v_t) || fired_in[fi] != 0;
-      fired_out[fi] = s;
-      any |= s;
+  // with a pool, a thread's first access is stored after the barrier, so
+  // that the pool's shared-memory reads do not queue behind the stores
+  A* held_vm = nullptr;
+  S* held_fired = nullptr;
+  A held_nv{};
+  S held_s{};
+  for (int dy = threadIdx.z; dy < ny; dy += blockDim.z) {
+    for (int dx = threadIdx.y; dx < nx; dx += blockDim.y) {
+      const int vi = ((qq * hp + y0 + dy + hh) * wp + x0 + dx + hw) * c;
+      const int fi = ((qq * h + y0 + dy) * w + x0 + dx) * c;
+      for (int ch = threadIdx.x * n; ch < c; ch += blockDim.x * n) {
+        A* vp = reinterpret_cast<A*>(vm + vi + ch);
+        S* fp = reinterpret_cast<S*>(fired_out + fi + ch);
+        const A v = *vp;
+        const S f = *reinterpret_cast<const S*>(fired_in + fi + ch);
+        const A nv = sat_add(v, *reinterpret_cast<const A*>(bias + ch));
+        const S s = fire(nv, f, v_t);
+        if (POOL) {
+          *reinterpret_cast<S*>(spk + (dy * cols + dx) * c + ch) = s;
+          if (held_vm == nullptr) {
+            held_vm = vp;
+            held_fired = fp;
+            held_nv = nv;
+            held_s = s;
+            continue;
+          }
+        } else if (pooled != nullptr) {  // pool 1: pooled is the spike map
+          *reinterpret_cast<S*>(pooled + fi + ch) = s;
+        }
+        *vp = nv;
+        *fp = s;
+      }
     }
   }
-  return any;
+  if (!POOL) return;
+  __syncthreads();
+  // the shared-memory reads below do not alias these stores, so they are
+  // issued ahead of them
+  if (held_vm != nullptr) {
+    *held_vm = held_nv;
+    *held_fired = held_s;
+  }
+  // OR each pooled cell's p x p spike words; cells past H or W are absent
+  using W = typename Word<S>::type;
+  for (int k = threadIdx.z * blockDim.y + threadIdx.y;
+       k < (nx + pool - 1) / pool; k += blockDim.y * blockDim.z) {
+    const int kx = min(pool, nx - k * pool);
+    const uint8_t* s0 = spk + k * pool * c;
+    uint8_t* out = pooled + ((qq * ph + g) * pw + x0 / pool + k) * c;
+    for (int ch = threadIdx.x * n; ch < c; ch += blockDim.x * n) {
+      W any = 0;
+      if (pool <= kBaseWindow) {  // every read in flight at once
+#pragma unroll
+        for (int dy = 0; dy < kBaseWindow; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < kBaseWindow; ++dx)
+            if (dy < ny && dx < kx)
+              any |= *reinterpret_cast<const W*>(
+                  s0 + (dy * cols + dx) * c + ch);
+      } else {
+        for (int dy = 0; dy < ny; ++dy)
+          for (int dx = 0; dx < kx; ++dx)
+            any |= *reinterpret_cast<const W*>(s0 + (dy * cols + dx) * c + ch);
+      }
+      *reinterpret_cast<W*>(out + ch) = any;
+    }
+  }
 }
 
-template <typename T, typename V>
-__global__ void threshold_pool_kernel(T* vm, const T* __restrict__ bias,
-                                      const uint8_t* fired_in,
-                                      uint8_t* fired_out, uint8_t* pooled,
-                                      int q, int h, int w, int c, int hh,
-                                      int hw, int pool, int ph, int pw,
-                                      V v_t) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)q * ph * pw * c;
-  if (idx >= total) return;
-  const int ch = (int)(idx % c);
-  size_t r = idx / c;
-  const int px = (int)(r % pw);
-  r /= pw;
-  const int py = (int)(r % ph);
-  const size_t qq = r / ph;
-  const uint8_t any = threshold_window(vm, bias[ch], fired_in, fired_out, qq,
-                                       py, px, ch, h, w, c, hh, hw, pool, v_t);
-  if (pooled != nullptr) pooled[idx] = any;
+// Grid: x = (tile, row group), y = column range; block: x = channel
+// group, y = pixel of the range, z = row of the group.  rows x cols input
+// cells per CTA; with POOL rows == pool and cols a multiple of pool, so
+// the CTA holds whole pooled cells.  vec: four channels per access.
+template <typename T, typename V, bool POOL>
+__global__ void __launch_bounds__(kBaseMaxThreads) threshold_pool_kernel(
+    T* vm, const T* __restrict__ bias, const uint8_t* fired_in,
+    uint8_t* fired_out, uint8_t* pooled, int h, int w, int c, int hh,
+    int hw, int pool, int ph, int pw, int groups, int rows, int cols,
+    bool vec, V v_t) {
+  extern __shared__ __align__(16) uint8_t spk[];  // POOL: [rows][cols][c]
+  const int qq = blockIdx.x / groups;
+  const int g = blockIdx.x - qq * groups;
+  const int y0 = g * rows, x0 = blockIdx.y * cols;
+  const int ny = min(rows, h - y0), nx = min(cols, w - x0);
+  if (vec)
+    threshold_cells<T, V, POOL, typename Vec4<T>::type, uchar4>(
+        vm, bias, fired_in, fired_out, pooled, spk, qq, g, y0, x0, ny, nx,
+        h, w, c, hh, hw, pool, ph, pw, cols, v_t);
+  else
+    threshold_cells<T, V, POOL, T, uint8_t>(
+        vm, bias, fired_in, fired_out, pooled, spk, qq, g, y0, x0, ny, nx,
+        h, w, c, hh, hw, pool, ph, pw, cols, v_t);
+}
+
+int sm_count() {
+  static int n_sm = 0;
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n_sm;
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T, typename V>
 cudaError_t launch(void* vm, const void* bias, const void* fired_in,
                    void* fired_out, void* pooled, int q, int h, int w, int c,
                    int hh, int hw, int pool, V v_t, cudaStream_t stream) {
+  if ((size_t)q * h * w * c == 0) return cudaSuccess;
+  const bool vec = c % 4 == 0 && aligned(vm, 4 * sizeof(T)) &&
+                   aligned(bias, 4 * sizeof(T)) && aligned(fired_in, 4) &&
+                   aligned(fired_out, 4) && aligned(pooled, 4);
+  const int n_sm = sm_count();
   const int ph = (h + pool - 1) / pool, pw = (w + pool - 1) / pool;
-  const size_t total = (size_t)q * ph * pw * c;
-  if (total == 0) return cudaSuccess;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  threshold_pool_kernel<T, V><<<blocks, threads, 0, stream>>>(
-      static_cast<T*>(vm), static_cast<const T*>(bias),
-      static_cast<const uint8_t*>(fired_in), static_cast<uint8_t*>(fired_out),
-      static_cast<uint8_t*>(pooled), q, h, w, c, hh, hw, pool, ph, pw, v_t);
+  const int tx = min(vec ? c / 4 : c, kBaseMaxThreads);
+  int rows, cols, groups, chunks;
+  if (pool > 1) {
+    // whole pool bands; split each band's columns until the bands' CTAs
+    // cover the SMs, within the thread and shared-memory budgets (a window
+    // wider than the map is the map)
+    rows = min(pool, h);
+    groups = ph;
+    const int split = max(1, min(pw, n_sm / (q * ph)));
+    const long long window = (long long)rows * pool;
+    int pcols = (pw + split - 1) / split;
+    pcols = (int)min((long long)pcols,
+                     max(1LL, kBaseMaxThreads / (tx * window)));
+    pcols = (int)min((long long)pcols, max(1LL, kBaseSmem / (window * c)));
+    cols = (int)min((long long)pcols * pool, (long long)w);
+    chunks = (pw + pcols - 1) / pcols;
+  } else {
+    // whole rows; more rows per CTA until the CTAs fit on the SMs
+    cols = min(w, max(1, kBaseMaxThreads / tx));
+    chunks = (w + cols - 1) / cols;
+    rows = 1;
+    while (rows < h && rows < kBaseMaxRows &&
+           (size_t)q * ((h + rows - 1) / rows) * chunks > (size_t)n_sm &&
+           tx * cols * (rows + 1) <= kBaseMaxThreads)
+      ++rows;
+    groups = (h + rows - 1) / rows;
+  }
+  const int ty = min(cols, kBaseMaxThreads / tx);
+  const int tz = min(min(rows, kBaseMaxRows), kBaseMaxThreads / (tx * ty));
+  if ((size_t)q * groups > 0x7fffffffu || chunks > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(q * groups), (unsigned)chunks);
+  const dim3 block(tx, ty, tz);
+  if (pool > 1) {
+    const size_t smem = (size_t)rows * cols * c;
+    if (smem > kBaseMaxSmem) return cudaErrorInvalidValue;
+    auto kern = threshold_pool_kernel<T, V, true>;
+    if (smem > kBaseSmem) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<grid, block, smem, stream>>>(
+        static_cast<T*>(vm), static_cast<const T*>(bias),
+        static_cast<const uint8_t*>(fired_in),
+        static_cast<uint8_t*>(fired_out), static_cast<uint8_t*>(pooled), h,
+        w, c, hh, hw, pool, ph, pw, groups, rows, cols, vec, v_t);
+  } else {
+    threshold_pool_kernel<T, V, false><<<grid, block, 0, stream>>>(
+        static_cast<T*>(vm), static_cast<const T*>(bias),
+        static_cast<const uint8_t*>(fired_in),
+        static_cast<uint8_t*>(fired_out), static_cast<uint8_t*>(pooled), h,
+        w, c, hh, hw, pool, ph, pw, groups, rows, cols, vec, v_t);
+  }
   return cudaGetLastError();
 }
 

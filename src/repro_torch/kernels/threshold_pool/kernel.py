@@ -5,7 +5,10 @@ in its base mode and in its emit mode, ``emit_capacity``).
 The kernels take the halo-padded membrane tiles with their halo offsets
 and update the inner region in place, so the scheduler never copies the
 strided inner view out and back.  CPU tensors run the plain version
-(``ref.threshold_pool_tile_ref``), which does the same in place.
+(``ref.threshold_pool_tile_ref``), which does the same in place.  The
+base kernel picks its access width itself: four channels per access
+where C % 4 == 0 and every operand's address is aligned, one otherwise
+(an odd C, or a view at an odd offset).
 """
 from __future__ import annotations
 
@@ -68,6 +71,10 @@ def _check(vm_padded, bias, fired, pool, halo, outs) -> tuple:
         if t is not None and (t.shape != shape or t.dtype != dtype):
             raise ValueError(f"{name} must be {shape} {dtype}, got "
                              f"{tuple(t.shape)} {t.dtype}")
+    if vm_padded.numel() >= 2**31:  # the kernels' offsets are 32-bit
+        raise ValueError(f"vm tiles {tuple(vm_padded.shape)} hold 2**31 "
+                         f"elements or more; the threshold kernels take "
+                         f"fewer")
     return q, h, w, c, ph, pw
 
 

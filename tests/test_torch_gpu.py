@@ -75,6 +75,72 @@ def test_cuda_kernels_equal_plain_versions(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_threshold_base_kernel_equals_plain_version(cuda, dtype, k):
+    """threshold_pool_batched at the FULL forward's three shapes (conv0
+    28x28x8, conv1 28x28x8 with the ragged pool 3, conv2 10x10x5: the
+    four-channel and the one-channel path) for B=8 and one sample; tiles,
+    biases and latches at odd offsets (the one-channel path on C=8);
+    ``fired_out`` = ``fired``; int tiles and biases on their rails.  vm
+    (the untouched halo included), spikes and pooled equal the plain
+    version exactly, and each call is one counted launch."""
+    g = torch.Generator().manual_seed(k)
+    hh = k // 2
+    v_t = 0.5 if dtype == torch.float32 else 20
+
+    def values(shape, rail):
+        if dtype == torch.float32:
+            return torch.randn(shape, generator=g).to(cuda)
+        info = torch.iinfo(dtype)
+        if not rail:
+            return torch.randint(info.min // 3, info.max // 3, shape,
+                                 generator=g).to(dtype).to(cuda)
+        vals = torch.tensor([info.min, info.min + 1, -1, 0, 1, info.max - 1,
+                             info.max], dtype=dtype)
+        return vals[torch.randint(0, 7, shape, generator=g)].to(cuda)
+
+    def at_offset(t, off):
+        store = torch.empty(t.numel() + off, dtype=t.dtype, device=cuda)
+        return store[off:].view(t.shape).copy_(t)
+
+    launches = 0
+    for q in (8, 1):
+        for side, c, pool in ((28, 8, None), (28, 8, 3), (10, 5, None)):
+            for off, alias, rail in ((0, False, False), (1, False, False),
+                                     (3, True, False), (0, True, True)):
+                vm = values((q, side + 2 * hh, side + 2 * hh, c), rail)
+                bias = values((c,), rail)
+                fired = (torch.rand((q, side, side, c), generator=g)
+                         < 0.1).to(cuda)
+                want_vm = vm.clone()
+                want = threshold_pool_tile_ref(want_vm, bias, fired.clone(),
+                                               v_t=v_t, pool=pool,
+                                               halo=(hh, hh))
+                vm_k, b_k, f_k = (at_offset(t, off) if off else t.clone()
+                                  for t in (vm, bias, fired))
+                runtime.reset_launches()
+                got = threshold_pool_cuda_batched(
+                    vm_k, b_k, f_k, v_t=v_t, pool=pool, halo=(hh, hh),
+                    fired_out=f_k if alias else None)
+                launches += runtime.LAUNCHES["threshold_pool"]
+                torch.cuda.synchronize()
+                assert torch.equal(vm_k, want_vm)
+                assert torch.equal(got[0], want[0])
+                assert (got[1] is None) == (pool is None)
+                if pool is not None:
+                    assert torch.equal(got[1], want[1])
+                if alias:
+                    assert got[0].data_ptr() == f_k.data_ptr()
+                if rail and dtype != torch.float32:
+                    inner = vm_k[:, hh:hh + side, hh:hh + side]
+                    info = torch.iinfo(dtype)
+                    assert (inner == info.max).any()
+                    assert (inner == info.min).any()
+    assert launches == 2 * 3 * 4
+
+
+@pytest.mark.gpu
 def test_launch_counters_count_kernel_launches_only(cuda):
     runtime.reset_launches()
     vm = torch.zeros((2, 10, 10, 4), device=cuda)
