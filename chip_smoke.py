@@ -49,16 +49,29 @@ Phases (any failure exits non-zero before the result line):
    ``synth_digits`` images under the same four plans, each held against
    the CPU plain path and the card's ``snn_apply_batched`` on the same
    images, and at a covering capacity against ``snn_apply_dense``
-   (argmax);
+   (argmax); then the serving engine on FULL under the serve plan, with
+   synchronizing CUDA calls made errors (``no_sync``): micro-batching
+   (8 requests, one size flush, then 3, a deadline flush padded to 8),
+   continuous refill (8 slots, one time step per chunk, 12 requests
+   staggered so that later ones refill mid-flight and the first steps
+   alone at bucket 1) and streaming admission of 8 ``dvs_moving_edges``
+   traces (28x28, 2 polarities) under the serve plan and
+   ``"fused-handoff"``; every request's logits ``torch.equal`` the card's
+   ``snn_apply_batched`` on the same inputs (streams: the binned frames),
+   and each streamed forward equals the CPU plain path (stats, state);
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
    kernels of its path (``PATH_KERNELS``) and no other, each exactly once
    per (channel block, time step) of its layers (``exact_launches``: at
    B=8 the fused run 50 banked convs, 40 emits and 10 base thresholds,
-   every other run 50 + 50);
+   every other run 50 + 50; the micro-batching engine 2 x (50 + 50); the
+   continuous engine 10 conv + 10 threshold per chunk, the conv through
+   the single-queue kernel at bucket 1; each stream engine run as one
+   forward of its plan);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
-   --requests 8`` and ``python -m repro_torch.launch.quickstart`` and
-   print their lines;
+   --requests 8`` (batched, ``--engine``, ``--engine --continuous
+   --t-chunk 1`` and ``--stream``) and ``python -m
+   repro_torch.launch.quickstart`` and print their lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -71,7 +84,10 @@ Phases (any failure exits non-zero before the result line):
    then end-to-end samples/s of every path and a ``torch.profiler``
    breakdown of one forward of the serve, event_par=1, fused and
    banked-cuda plans and of one single-sample forward under the serve
-   plan and event_par=1.
+   plan and event_par=1; then samples/s of the micro-batching,
+   continuous and stream engines at B=8 / 8 slots beside
+   ``snn_apply_batched`` of the same inputs, and a ``torch.profiler``
+   breakdown of one continuous engine pass, per chunk.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -157,10 +173,11 @@ def device_profile(fn, label: str, wall_s: float) -> None:
     if not busy_us:
         fail(f"profile {label}: the profiler saw no device time")
     print(f"profile {label}: device busy {busy_us / 1e3:.3f} ms of "
-          f"{wall_s * 1e3:.3f} ms wall per forward "
+          f"{wall_s * 1e3:.3f} ms wall per call "
           f"({100 * busy_us / 1e6 / wall_s:.1f}% busy)")
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    return busy_us / 1e3
 
 
 # --------------------------------------------------------------- phase 3
@@ -635,9 +652,13 @@ def check_interlaced_gather(g, dev, same) -> None:
 
 # --------------------------------------------------------------- phase 4
 def forward(params, spikes, cfg, plan):
-    """``snn_apply_batched``'s steps in one chunk, keeping the state."""
+    """``snn_apply_batched``'s steps in one chunk, keeping the state;
+    ``spikes`` may be a ``StreamState`` of ingested events."""
+    from repro_torch.core.aeq import StreamState
     from repro_torch.core.csnn import init_state, snn_readout, snn_step_chunk
-    state = init_state(params, cfg, plan, spikes.shape[0])
+    batch = (spikes.banks if isinstance(spikes, StreamState)
+             else spikes).shape[0]
+    state = init_state(params, cfg, plan, batch)
     state, stats = snn_step_chunk(params, state, spikes, cfg, plan,
                                   collect_stats=True)
     return snn_readout(params, state, cfg, plan), stats, state
@@ -703,19 +724,40 @@ PATH_KERNELS = {
                                          "threshold_pool"),
     "single, fused-handoff": ("event_conv_banked", "threshold_pool"),
     "single, banked-cuda": ("event_conv_banked", "threshold_pool"),
+    # the serving engine on the serve plan (phase 4, engine): every batch
+    # of the micro-batching engine is one B=8 forward; the continuous
+    # engine steps buckets of 1 (single-queue kernels) to 8; each stream
+    # engine run is 5 chunks of all 8 slots
+    "engine, micro-batching": ("event_conv_interlaced", "threshold_pool"),
+    "engine, continuous": ("event_conv_interlaced",
+                           "event_conv_interlaced_single", "threshold_pool"),
+    "engine, stream": ("event_conv_interlaced", "threshold_pool"),
+    "engine, stream fused-handoff": ("event_conv_banked",
+                                     "threshold_pool_emit", "threshold_pool"),
 }
-BATCHED_PATHS = tuple(p for p in PATH_KERNELS if not p.startswith("single"))
+BATCHED_PATHS = ("serve plan (interlaced)", "event_par=1 (sequential)",
+                 "fused-handoff", "banked-cuda")
 
 
-def exact_launches(path, cfg, plan) -> dict:
+def exact_launches(path, cfg, plan, buckets=()) -> dict:
     """Launches of each kernel of ``path`` in one forward: its conv unit
     and its threshold unit once per (channel block, time step) of every
     conv layer over all input channels; on the batched fused-handoff path
     a layer whose consumer is pinned to ``"fused-handoff"`` thresholds
-    through the emit kernel, the last layer through the base mode."""
+    through the emit kernel, the last layer through the base mode.  With
+    ``buckets`` (the continuous engine at one time step per chunk: the
+    occupancy bucket of each chunk), the same once per channel block of
+    every chunk, the conv unit through its single-queue kernel at bucket
+    1."""
+    if buckets:
+        per_t = sum(lp.c_out // lp.channel_block for lp in plan.layers)
+        n1 = sum(b == 1 for b in buckets)
+        return {"event_conv_interlaced": per_t * (len(buckets) - n1),
+                "event_conv_interlaced_single": per_t * n1,
+                "threshold_pool": per_t * len(buckets)}
     blocks = [cfg.t_steps * lp.c_out // lp.channel_block
               for lp in plan.layers]
-    if path != "fused-handoff":
+    if path not in ("fused-handoff", "engine, stream fused-handoff"):
         return {k: sum(blocks) for k in PATH_KERNELS[path]}
     emit = sum(n for n, nxt in zip(blocks, plan.layers[1:])
                if nxt.resolve_variant() == "fused-handoff")
@@ -726,7 +768,8 @@ def exact_launches(path, cfg, plan) -> dict:
 def counted(path, fn, launches, exact):
     """Run ``fn`` from launch counters set to 0 and return its result;
     fail unless it launched every kernel of ``path`` exactly ``exact[k]``
-    times and no other kernel."""
+    times and no other kernel (``exact``: a dict, or a function giving it
+    after the run)."""
     import torch
 
     from repro_torch.kernels import runtime
@@ -734,7 +777,9 @@ def counted(path, fn, launches, exact):
     out = fn()
     torch.cuda.synchronize()
     counts = dict(runtime.LAUNCHES)
-    print(f"launches per forward, {path}: {counts}")
+    if callable(exact):
+        exact = exact()
+    print(f"launches, {path}: {counts}")
     kernels = PATH_KERNELS[path]
     for k, n in counts.items():
         if k in kernels and n <= 0:
@@ -936,6 +981,186 @@ def truncated(runs, plan) -> int:
                for _, stats in runs for st, lp in zip(stats, plan.layers))
 
 
+# ------------------------------------------------------- phase 4, engine
+ENGINE_TIMEOUT_S = 300.0
+
+
+def no_sync(fn):
+    """Run ``fn`` with every synchronizing CUDA call made an error
+    (``torch.cuda.set_sync_debug_mode``): the engine waits on the device
+    only through a ``torch.cuda.Event`` from a worker thread, which the
+    mode does not count."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def serve_all(engine, requests, *, stagger=False):
+    """Serve ``requests`` through ``engine`` in one context, bounded by
+    ``asyncio.wait_for``; with ``stagger`` the others are submitted once
+    the first request's first chunk is on its way.  Returns the stacked
+    logits (CPU)."""
+    import asyncio
+
+    import torch
+
+    async def drive():
+        async with engine:
+            first = engine.submit_nowait(requests[0])
+            while stagger and engine.stats["chunks"] == 0:
+                await asyncio.sleep(0)
+            rest = [engine.submit_nowait(r) for r in requests[1:]]
+            return await asyncio.gather(first, *rest)
+
+    return torch.stack(asyncio.run(asyncio.wait_for(drive(),
+                                                    ENGINE_TIMEOUT_S)))
+
+
+def record_buckets(engine) -> list:
+    """The occupancy bucket of every chunk ``engine`` steps from now on
+    (a wrapper around its chunk step, for the launch count)."""
+    buckets, step = [], engine._step
+
+    def recording(state, act, bucket, *args, **kwargs):
+        buckets.append(bucket)
+        return step(state, act, bucket, *args, **kwargs)
+
+    engine._step = recording
+    return buckets
+
+
+def stream_case(dev, cfg, n):
+    """The 2-polarity variant of ``cfg``, its params (seed 0) and ``n``
+    ``dvs_moving_edges`` traces (seed 1) with their banks and binned
+    frames on ``dev``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.csnn import init_params
+    from repro_torch.data.dvs import (dvs_moving_edges, events_to_banks,
+                                      events_to_frames)
+
+    scfg = dataclasses.replace(cfg, input_channels=2)
+    traces, _ = dvs_moving_edges(n, scfg.t_steps, scfg.input_hw, seed=1)
+    banks = np.stack([events_to_banks(tr, scfg.t_steps, scfg.input_hw)
+                      for tr in traces])
+    frames = np.stack([events_to_frames(tr, scfg.t_steps, scfg.input_hw)
+                       for tr in traces])
+    return (scfg, init_params(scfg, seed=0, device=dev), traces,
+            torch.from_numpy(banks).to(dev), torch.from_numpy(frames).to(dev))
+
+
+def engine_path(dev, cfg, params, plan, launches):
+    """Phases 4-5, the serving engine on ``cfg`` under the serve plan,
+    each run with synchronizing CUDA calls made errors and its launches
+    counted from 0:
+
+    * micro-batching (max_batch 8): 8 requests (one size flush), then 3
+      (a deadline flush padded to the tile of 8);
+    * continuous (8 slots, one time step per chunk): 12 requests, the
+      first alone and the rest once its first chunk is on its way, so
+      later ones join mid-flight (refills) and the lone first steps at
+      bucket 1;
+    * streaming: 8 ``dvs_moving_edges`` traces (28x28, 2 polarities),
+      under the serve plan and under ``"fused-handoff"``.
+
+    Every request's logits must equal the card's ``snn_apply_batched``
+    on the same inputs (streams: the binned frames of the same events),
+    and each run must launch its path's kernels exactly once per
+    (channel block, time step) of each batch or chunk.  The streamed
+    forwards are also held against the CPU plain path (stats, state).
+    Returns the stream case (config, params, traces, banks, frames) and
+    its plans."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.aeq import StreamState
+    from repro_torch.core.csnn import encode_input, snn_apply_batched
+    from repro_torch.core.plan import plan_network
+    from repro_torch.serve.csnn_engine import CSNNEngine, CSNNServeConfig
+
+    h, w = cfg.input_hw
+    imgs = torch.rand((12, h, w, cfg.input_channels),
+                      generator=torch.Generator().manual_seed(2))
+    want = snn_apply_batched(params, encode_input(imgs.to(dev), cfg), cfg,
+                             plan, collect_stats=False).cpu()
+
+    def check(name, got, ref, engine):
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name}: logits not finite or misshapen")
+        if not torch.equal(got, ref):
+            fail(f"{name}: logits differ from snn_apply_batched on the "
+                 f"card by {(got - ref).abs().max().item()}")
+        print(f"{name}: every request == snn_apply_batched on the card "
+              f"(torch.equal); classes {got.argmax(-1).tolist()}; stats "
+              f"{ {k: v for k, v in engine.stats.items() if v} }")
+
+    # micro-batching
+    micro = CSNNEngine(params, cfg, plan, CSNNServeConfig(max_batch=8))
+    micro.warmup()
+
+    def two_waves():
+        return torch.cat([serve_all(micro, list(imgs[:8])),
+                          serve_all(micro, list(imgs[8:11]))])
+
+    name = "engine, micro-batching"  # two B=8 forwards
+    got = counted(name, lambda: no_sync(two_waves), launches,
+                  {k: 2 * n for k, n in exact_launches(name, cfg,
+                                                       plan).items()})
+    st = micro.stats
+    if (st["flushes_full"], st["flushes_deadline"], st["padded_slots"],
+            st["batches"]) != (1, 1, 5, 2):
+        fail(f"{name}: flushes {st} (want one size flush, one deadline "
+             f"flush padded by 5)")
+    check(f"csnn_paper.FULL {name}", got, want[:11], micro)
+
+    # continuous refill
+    cont = CSNNEngine(params, cfg, plan, CSNNServeConfig(
+        max_batch=8, continuous=True, slots=8, t_chunk=1))
+    cont.warmup()
+    buckets = record_buckets(cont)
+    name = "engine, continuous"
+    got = counted(name, lambda: no_sync(lambda: serve_all(
+        cont, list(imgs), stagger=True)), launches,
+        lambda: exact_launches(name, cfg, plan, buckets))
+    st = cont.stats
+    if not (st["refills"] > 0 and st["admitted"] == st["retired"] == 12):
+        fail(f"{name}: stats {st} (want refills and 12 admitted and "
+             f"retired)")
+    print(f"{name}: buckets per chunk {buckets}")
+    check(f"csnn_paper.FULL {name}", got, want, cont)
+
+    # streaming, serve plan and fused-handoff
+    scfg, sparams, traces, banks, frames = stream_case(dev, cfg, B)
+    knobs = dict(capacity=256, channel_block=8, batch_tile=8, ingest=True)
+    n_conv = len(plan.layers)
+    splans = {"engine, stream": plan_network(scfg, event_par=None, **knobs),
+              "engine, stream fused-handoff": plan_network(
+                  scfg, variant=["fused-handoff"] * n_conv, **knobs)}
+    for name, splan in splans.items():
+        if splan.layers[0].resolve_stream_finalize() != "ranks":
+            fail(f"{name}: 28x28 input should finalize by ranks")
+        swant = snn_apply_batched(sparams, frames, scfg, splan,
+                                  collect_stats=False).cpu()
+        eng = CSNNEngine(sparams, scfg, splan, CSNNServeConfig(
+            max_batch=8, continuous=True, stream=True, t_chunk=1))
+        eng.warmup()
+        got = counted(name, lambda e=eng: no_sync(
+            lambda: serve_all(e, traces)), launches,
+            exact_launches(name, scfg, splan))
+        check(f"csnn_paper.FULL 2-polarity {name}", got, swant, eng)
+        hold(f"csnn_paper.FULL 2-polarity streamed forward, {name[8:]}",
+             forward(sparams, StreamState(banks), scfg, splan),
+             forward(to_cpu(sparams), StreamState(banks.cpu()), scfg, splan))
+    return (scfg, sparams, traces, banks, frames), splans
+
+
 def timing(dev, cfg, params, imgs, plans, card):
     """Phase 7: each kernel at the conv1 shapes of this run's data (CUDA
     events, mean per launch over the launches of channel block 0: one per
@@ -1082,6 +1307,75 @@ def timing(dev, cfg, params, imgs, plans, card):
              plain_ms=p_seq, bound_ms=b_seq, bound_by=by_seq,
              library_ms=t_lib32),
     ] + time_threshold(dev, card) + fused
+
+
+def timing_engine(dev, cfg, params, plan, stream, splans, card) -> None:
+    """Phase 7, the serving engine on the serve plan: samples/s (median of
+    5 passes of 8 requests, each pass one ``run_requests``) of the
+    micro-batching engine (one size flush), the continuous engine (8
+    slots, one time step per chunk: 5 chunks of 8 rows) and the stream
+    engine (8 traces, 5 chunks of 8 rows), beside ``snn_apply_batched``
+    of the same 8 images and of the binned frames of the same 8 traces;
+    then a ``torch.profiler`` breakdown of one continuous pass, per
+    chunk."""
+    import torch
+
+    from repro_torch.core.csnn import encode_input, snn_apply_batched
+    from repro_torch.serve.csnn_engine import CSNNEngine, CSNNServeConfig
+
+    h, w = cfg.input_hw
+    imgs = torch.rand((B, h, w, cfg.input_channels),
+                      generator=torch.Generator().manual_seed(3))
+    reqs = list(imgs)
+    scfg, sparams, traces, _, frames = stream
+    splan = splans["engine, stream"]
+    micro = CSNNEngine(params, cfg, plan, CSNNServeConfig(max_batch=B))
+    cont = CSNNEngine(params, cfg, plan, CSNNServeConfig(
+        max_batch=B, continuous=True, t_chunk=1))
+    strm = CSNNEngine(sparams, scfg, splan, CSNNServeConfig(
+        max_batch=B, continuous=True, stream=True, t_chunk=1))
+    for engine in (micro, cont, strm):
+        engine.warmup()
+
+    def samples_per_s(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return B / statistics.median(ts)
+
+    def serve(engine, requests):
+        return lambda: engine.run_requests(requests,
+                                           timeout=ENGINE_TIMEOUT_S)
+
+    sps = {
+        "snn_apply_batched": samples_per_s(lambda: snn_apply_batched(
+            params, encode_input(imgs.to(dev), cfg), cfg, plan,
+            collect_stats=False)),
+        "micro-batching engine": samples_per_s(serve(micro, reqs)),
+        "continuous engine": samples_per_s(serve(cont, reqs)),
+        "stream engine": samples_per_s(serve(strm, traces)),
+        "snn_apply_batched of the binned traces": samples_per_s(
+            lambda: snn_apply_batched(sparams, frames, scfg, splan,
+                                      collect_stats=False)),
+    }
+    tag = f"[{card}]"
+    print("timing engine csnn_paper.FULL, serve plan, 8 requests per pass: "
+          + ", ".join(f"{k} {v:.1f} samples/s" for k, v in sps.items())
+          + f" {tag}")
+    before = cont.stats["chunks"]
+    wall_s = B / sps["continuous engine"]
+    busy_ms = device_profile(serve(cont, reqs),
+                             "continuous engine pass (8 requests)", wall_s)
+    n = cont.stats["chunks"] - before
+    print(f"profile continuous engine chunk (8 slots, one time step): "
+          f"device busy {busy_ms / n:.4f} ms, wall {wall_s * 1e3 / n:.4f} "
+          f"ms per chunk ({n} chunks per pass; "
+          f"{100 * busy_ms / (wall_s * 1e3):.1f}% busy) {tag}")
 
 
 # The base threshold kernel's launches in a FULL forward: (label, Q, map
@@ -1520,16 +1814,25 @@ def main() -> int:
     launches, params, imgs, plans = main_path(           # phases 4-5
         dev, csnn_paper.FULL, csnn_wide.FULL)
     sspikes = single_path(dev, csnn_paper.FULL, params, plans, launches)
+    serve_plan = plans["serve plan (interlaced)"]
+    stream, splans = engine_path(dev, csnn_paper.FULL, params, serve_plan,
+                                 launches)
     print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
     env = dict(os.environ, PYTHONPATH=str(SRC))          # phase 6
-    serve = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "csnn-paper", "--requests", "8"],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-    print(serve.stdout, end="")
-    if serve.returncode != 0 or serve.stdout.count("req ") != 8:
-        fail(f"serve exited {serve.returncode}:\n{serve.stderr}")
+    for flags, line in (([], "mode=batched"), (["--engine"], "engine: "),
+                        (["--engine", "--continuous", "--t-chunk", "1"],
+                         "engine: chunks="),
+                        (["--stream"], "stream: events=")):
+        serve = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             "csnn-paper", "--requests", "8", *flags],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        print(serve.stdout, end="")
+        if (serve.returncode != 0 or serve.stdout.count("req ") != 8
+                or line not in serve.stdout):
+            fail(f"serve {' '.join(flags)} exited {serve.returncode}:\n"
+                 f"{serve.stderr}")
     quick = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quickstart"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
@@ -1541,6 +1844,8 @@ def main() -> int:
                      card)
     kernels += timing_single(dev, csnn_paper.FULL, params, plans, sspikes,
                              card)
+    timing_engine(dev, csnn_paper.FULL, params, serve_plan, stream, splans,
+                  card)
     for k in kernels:  # a record at another shape counts its kernel's runs
         name = k["name"].split()[0]
         k.update(launches=launches[name], max_abs_err=max_err[name])

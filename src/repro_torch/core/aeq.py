@@ -19,6 +19,15 @@ n_banks membrane RAM banks, ``ranked_keep`` truncates by cumulative ranks
 instead of a sort (the same kept events), and ``build_bank_masks`` /
 ``build_fused_handoff`` place the kept events' centres into padded banks
 (``BankedEvents``; ``FusedHandoff``, the carrier between fused layers).
+
+Streaming ingestion skips the dense frame: raw DVS address events
+(t, y, x, polarity) are appended into a :class:`StreamState`, whose
+occupancy already sits in the interlace-column banks
+(``append_events`` / ``append_events_batched``: duplicates dedupe,
+out-of-window rows drop, order never matters).  ``stream_queues``
+finalizes the input queues from the banks by cumulative ranks, without a
+sort, equal to ``build_aeq_batched`` over the binned frames, and
+``fused_handoff_from_banks`` builds the fused carrier from them.
 """
 from __future__ import annotations
 
@@ -468,4 +477,242 @@ def build_fused_handoff(spikes: torch.Tensor, capacity: int,
     il = il.reshape(t, c, b, geometry.n_banks, hb, wb)
     kept_il, count, _ = ranked_keep(il, capacity, (h, w))
     return FusedHandoff(masks=place_padded_banks(kept_il, (h, w), geometry),
+                        count=count.transpose(1, 2).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Streaming DVS ingestion: incremental AEQ append.
+# ---------------------------------------------------------------------------
+
+class StreamChunk(NamedTuple):
+    """A fixed-depth buffer of raw DVS address events awaiting ingestion.
+
+    events: (..., N, 4) int32, one (t, y, x, polarity) row per event: ``t``
+        the time bin inside the ingestion window, ``polarity`` the input
+        channel.  Rows beyond ``num`` are padding; rows with out-of-window
+        coordinates are dropped on append.
+    num: (...,) int32 valid leading rows per buffer.
+    """
+
+    events: torch.Tensor
+    num: torch.Tensor
+
+    @property
+    def buffer(self) -> int:
+        return self.events.shape[-2]
+
+
+class StreamState(NamedTuple):
+    """Ingestion state of one T-bin input window.
+
+    banks: (..., T, C, n_banks, HB, WB) bool per-(bin, channel) pixel
+        occupancy held in the interlace-column banks (bank
+        s = kw*(y%kh) + x%kw, macro cell (y//kh, x//kw)); no dense (H, W)
+        frame is kept.  Leading dims (a batch) pass through
+        ``append_events_batched``.
+    """
+
+    banks: torch.Tensor
+
+
+def init_stream_state(hw: tuple[int, int], t_bins: int, channels: int,
+                      lead: tuple = (),
+                      geometry: ConvGeometry = GEOM_3X3,
+                      device="cuda") -> StreamState:
+    """Empty ingestion state for a (T, C, H, W) input window."""
+    h, w = hw
+    hb, wb = -(-h // geometry.kh), -(-w // geometry.kw)
+    return StreamState(banks=torch.zeros(
+        (*lead, t_bins, channels, geometry.n_banks, hb, wb),
+        dtype=torch.bool, device=device))
+
+
+def make_stream_chunk(events, buffer: Optional[int] = None,
+                      device="cuda") -> StreamChunk:
+    """Pad an (N, 4) event list to a fixed-depth :class:`StreamChunk` on
+    ``device``; ``buffer`` defaults to N, and pad rows carry t=-1 so they
+    never land even where ``num`` is ignored."""
+    ev = np.asarray(events, dtype=np.int32).reshape(-1, 4)
+    n = ev.shape[0]
+    depth = n if buffer is None else buffer
+    if n > depth:
+        raise ValueError(f"{n} events exceed the chunk buffer depth {depth}")
+    out = np.full((depth, 4), -1, np.int32)
+    out[:n] = ev
+    return StreamChunk(events=torch.from_numpy(out).to(device),
+                       num=torch.tensor(n, dtype=torch.int32, device=device))
+
+
+def _append_rows(banks: torch.Tensor, events: torch.Tensor,
+                 num: torch.Tensor, hw: tuple[int, int],
+                 geometry: ConvGeometry) -> torch.Tensor:
+    """Set the occupancy bit of every in-window row of ``events`` (L, N, 4)
+    in ``banks`` (L, T, C, n_banks, HB, WB), in place; ``num`` (L,)."""
+    h, w = hw
+    t_bins, channels = banks.shape[1:3]
+    ev = events.to(torch.int64)
+    t, y, x, p = ev.unbind(-1)
+    rows = torch.arange(ev.shape[-2], device=ev.device)
+    ok = ((rows[None, :] < num[:, None])
+          & (t >= 0) & (t < t_bins) & (y >= 0) & (y < h)
+          & (x >= 0) & (x < w) & (p >= 0) & (p < channels))
+    lead = torch.arange(ev.shape[0], device=ev.device)[:, None].expand_as(t)
+    t, y, x, p, lead = t[ok], y[ok], x[ok], p[ok], lead[ok]
+    banks[lead, t, p, column_index(y, x, geometry), y // geometry.kh,
+          x // geometry.kw] = True
+    return banks
+
+
+def append_events(state: StreamState, chunk: StreamChunk,
+                  hw: tuple[int, int],
+                  geometry: ConvGeometry = GEOM_3X3) -> StreamState:
+    """Merge one chunk of raw events into the ingestion state (a new
+    state; ``state`` is left as it was).  Setting bits is idempotent, so
+    duplicates (a pixel re-firing inside one bin) dedupe to the one bit
+    the binned path sees; rows outside the (T, C, H, W) window and
+    padding rows are dropped; any chunking or order of one event set
+    gives the same state."""
+    banks = _append_rows(state.banks.clone()[None], chunk.events[None],
+                         chunk.num.reshape(1), hw, geometry)
+    return StreamState(banks=banks[0])
+
+
+def append_events_batched(state: StreamState, chunk: StreamChunk,
+                          hw: tuple[int, int],
+                          geometry: ConvGeometry = GEOM_3X3) -> StreamState:
+    """:func:`append_events` over matching leading dims (e.g. a slot
+    batch): banks (..., T, C, n_banks, HB, WB) + events (..., N, 4)."""
+    lead = tuple(state.banks.shape[:-5])
+    if (tuple(chunk.events.shape[:-2]) != lead
+            or tuple(chunk.num.shape) != lead):
+        raise ValueError(
+            f"chunk leading dims {tuple(chunk.events.shape[:-2])} do not "
+            f"match state leading dims {lead}")
+    n = math.prod(lead)
+    banks = _append_rows(
+        state.banks.reshape(n, *state.banks.shape[-5:]).clone(),
+        chunk.events.reshape(n, chunk.buffer, 4), chunk.num.reshape(n),
+        hw, geometry)
+    return StreamState(banks=banks.reshape(state.banks.shape))
+
+
+def stream_frames(state: StreamState, hw: tuple[int, int],
+                  geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
+    """Dense (..., T, C, H, W) bool view of the ingestion state: the frames
+    the binned path builds from the same events."""
+    return deinterlace(state.banks, hw, geometry)
+
+
+def _queues_from_cols(il_flat: torch.Tensor, h: int, w: int, capacity: int,
+                      interlaced: bool,
+                      geometry: ConvGeometry = GEOM_3X3
+                      ) -> BatchedEventQueue:
+    """Sort-free queue compaction from column-bank occupancy.
+
+    il_flat: (N, n_banks, HB*WB) bool, cells in raster (I, J) order.  A
+    kept event's queue slot is its rank in the read order, from exclusive
+    cumulative sums: within one column, (I, J) raster order is the (i, j)
+    order, so rank = events of earlier columns + earlier events of its
+    column (raster layout: the rank of the pixel in the dense map).  One
+    scatter places the kept events; ranks at or past min(capacity, H*W)
+    drop, as ``build_aeq_batched`` drops its tail.
+    """
+    kh, kw = geometry.kh, geometry.kw
+    nb = geometry.n_banks
+    n, _, cells = il_flat.shape
+    hb, wb = -(-h // kh), -(-w // kw)
+    dev = il_flat.device
+    seg_full = il_flat.sum(dim=-1, dtype=torch.int32)             # (N, nb)
+    count = seg_full.sum(dim=-1, dtype=torch.int32)               # (N,)
+    kept = torch.clamp(count, max=min(capacity, h * w))
+    il_i = il_flat.to(torch.int32)
+    if interlaced:
+        seg_off_full = torch.cumsum(seg_full, dim=-1,
+                                    dtype=torch.int32) - seg_full
+        rank = (seg_off_full[:, :, None]
+                + torch.cumsum(il_i, dim=-1, dtype=torch.int32) - il_i)
+    else:
+        dense = deinterlace(il_i.reshape(n, nb, hb, wb), (h, w), geometry)
+        flat = dense.reshape(n, h * w)
+        rank_flat = torch.cumsum(flat, dim=-1, dtype=torch.int32) - flat
+        rank = interlace(rank_flat.reshape(n, h, w),
+                         geometry).reshape(n, nb, cells)
+    # cell (s, I, J) -> pixel (i, j); pad cells (i >= h or j >= w) are
+    # never occupied, so ``keep`` masks their coordinates
+    s = torch.arange(nb, dtype=torch.int32, device=dev)[:, None]
+    cell = torch.arange(cells, dtype=torch.int32, device=dev)[None, :]
+    ii = kh * (cell // wb) + s // kw                              # (nb, cells)
+    jj = kw * (cell % wb) + s % kw
+    cell_coords = torch.stack([ii, jj], dim=-1).reshape(nb * cells, 2)
+    keep = il_flat & (rank < kept[:, None, None])
+    pos = torch.where(keep, rank, capacity).reshape(n, nb * cells)
+    coords = torch.full((n, capacity + 1, 2), -1, dtype=torch.int32,
+                        device=dev)                # slot ``capacity``: a dump
+    coords.scatter_(1, pos.to(torch.int64)[..., None].expand(-1, -1, 2),
+                    cell_coords[None].expand(n, -1, -1))
+    coords = coords[:, :capacity].contiguous()
+    valid = (torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
+             < kept[:, None])
+    seg_off = seg_cnt = None
+    if interlaced:
+        seg_cnt = torch.minimum(
+            torch.clamp(kept[:, None] - seg_off_full, min=0), seg_full)
+        seg_off = torch.cumsum(seg_cnt, dim=-1, dtype=torch.int32) - seg_cnt
+    return BatchedEventQueue(coords=coords, valid=valid, count=count,
+                             seg_offsets=seg_off, seg_counts=seg_cnt)
+
+
+def _check_banks(banks: torch.Tensor, hw: tuple[int, int],
+                 geometry: ConvGeometry) -> None:
+    h, w = hw
+    kh, kw = geometry.kh, geometry.kw
+    got_nb, hb, wb = banks.shape[-3:]
+    if got_nb != geometry.n_banks:
+        raise ValueError(f"stream banks must carry {geometry.n_banks} "
+                         f"columns for the {kh}x{kw} geometry, got {got_nb}")
+    if (hb, wb) != (-(-h // kh), -(-w // kw)):
+        raise ValueError(f"stream banks {(hb, wb)} do not match hw={hw} "
+                         f"under the {kh}x{kw} geometry")
+
+
+def stream_queues(state: StreamState, capacity: int, hw: tuple[int, int], *,
+                  interlaced: bool = True,
+                  geometry: ConvGeometry = GEOM_3X3) -> BatchedEventQueue:
+    """Finalize ingested events into queues without a sort.
+
+    Returns a :class:`BatchedEventQueue` with leading dims (..., T, C)
+    equal to ``build_aeq_batched(stream_frames(state, hw), capacity)``
+    (coords, valid, count, segments, truncation included), built from the
+    column banks by :func:`_queues_from_cols`.
+    """
+    h, w = hw
+    nb = geometry.n_banks
+    _check_banks(state.banks, hw, geometry)
+    *lead, _, hb, wb = state.banks.shape
+    n = math.prod(lead)
+    q = _queues_from_cols(state.banks.reshape(n, nb, hb * wb), h, w,
+                          capacity, interlaced, geometry)
+    return BatchedEventQueue(
+        coords=q.coords.reshape(*lead, capacity, 2),
+        valid=q.valid.reshape(*lead, capacity),
+        count=q.count.reshape(tuple(lead)),
+        seg_offsets=None if q.seg_offsets is None
+        else q.seg_offsets.reshape(*lead, nb),
+        seg_counts=None if q.seg_counts is None
+        else q.seg_counts.reshape(*lead, nb))
+
+
+def fused_handoff_from_banks(banks: torch.Tensor, capacity: int,
+                             hw: tuple[int, int],
+                             geometry: ConvGeometry = GEOM_3X3
+                             ) -> FusedHandoff:
+    """The fused carrier straight from streamed banks (B, T, C, n_banks,
+    HB, WB): they already are the interlaced centre occupancy that
+    :func:`build_fused_handoff` computes, so no dense frame is built: rank
+    truncation, then :func:`place_padded_banks`.  Equal to binning the same
+    events and calling :func:`build_fused_handoff`."""
+    _check_banks(banks, hw, geometry)
+    il = banks.permute(1, 2, 0, 3, 4, 5)          # (T, C, B, nb, HB, WB)
+    kept_il, count, _ = ranked_keep(il, capacity, hw)
+    return FusedHandoff(masks=place_padded_banks(kept_il, hw, geometry),
                         count=count.transpose(1, 2).contiguous())

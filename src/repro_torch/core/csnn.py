@@ -27,10 +27,13 @@ from torch import nn
 
 from .encoding import mttfs_thresholds, multi_threshold_encode
 from .event_conv import conv2d_same
-from .plan import NOT_PORTED, NetworkPlan, plan_network
+from .aeq import StreamState
+from .plan import NetworkPlan, plan_network
 from .scheduler import (LayerStats, fc_readout, init_conv_carry,
-                        run_conv_layer_batched_chunk, run_conv_layer_dense,
-                        run_conv_layer_planned, run_fc_head)
+                        run_conv_layer_batched_chunk,
+                        run_conv_layer_batched_chunk_streamed,
+                        run_conv_layer_dense, run_conv_layer_planned,
+                        run_fc_head)
 
 
 @dataclass(frozen=True)
@@ -215,14 +218,20 @@ def init_state(params: dict, cfg: CSNNConfig, plan: NetworkPlan,
 
 
 def snn_step_chunk(params: dict, state: CSNNState,
-                   spikes_chunk: torch.Tensor, cfg: CSNNConfig,
-                   plan: NetworkPlan, *, collect_stats: bool = False):
+                   spikes_chunk: torch.Tensor | StreamState,
+                   cfg: CSNNConfig, plan: NetworkPlan, *,
+                   collect_stats: bool = False):
     """Advance the batched pipeline by one chunk of time steps.
 
-    spikes_chunk: (B, t_chunk, H, W, C_in) bool.  Each conv layer consumes
-    the chunk from its carry; the head drive accumulates the last conv
-    layer's spikes.  Returns the new state, or (state, [LayerStats, ...])
-    with ``collect_stats``.
+    spikes_chunk: (B, t_chunk, H, W, C_in) bool, or a
+    :class:`~repro_torch.core.aeq.StreamState` with banks (B, t_chunk,
+    C_in, n_banks, HB, WB) of ingested DVS events, which the first conv
+    layer consumes through
+    ``scheduler.run_conv_layer_batched_chunk_streamed`` (equal to binning
+    the events into frames).  Each conv layer consumes the chunk from its
+    carry; the head drive accumulates the last conv layer's spikes.
+    Returns the new state, or (state, [LayerStats, ...]) with
+    ``collect_stats``.
 
     The layer boundary: when the next conv layer is pinned to
     ``"fused-handoff"``, the producer emits that layer's
@@ -230,8 +239,9 @@ def snn_step_chunk(params: dict, state: CSNNState,
     package builds the same carrier here with ``build_fused_handoff``),
     and the carrier passes in place of the dense spikes.
     """
-    if not isinstance(spikes_chunk, torch.Tensor):
-        raise NotImplementedError(NOT_PORTED["stream"])
+    if not isinstance(spikes_chunk, (torch.Tensor, StreamState)):
+        raise TypeError(f"spikes_chunk must be a tensor of spikes or a "
+                        f"StreamState, got {type(spikes_chunk).__name__}")
     x, stats, ci = spikes_chunk, [], 0
     n_conv = len(plan.layers)
     new_convs = []
@@ -241,9 +251,11 @@ def snn_step_chunk(params: dict, state: CSNNState,
             nxt = plan.layers[ci + 1] if ci + 1 < n_conv else None
             emit = ((nxt.capacity, nxt.geometry) if nxt is not None
                     and nxt.resolve_variant() == "fused-handoff" else None)
-            x, carry, st = run_conv_layer_batched_chunk(
-                x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
-                state.convs[ci], emit=emit)
+            run = (run_conv_layer_batched_chunk_streamed
+                   if isinstance(x, StreamState)  # layer 0 only
+                   else run_conv_layer_batched_chunk)
+            x, carry, st = run(x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
+                               state.convs[ci], emit=emit)
             new_convs.append(carry)
             stats.append(st)
             ci += 1

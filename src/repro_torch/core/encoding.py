@@ -37,5 +37,8 @@ def multi_threshold_encode(frames: torch.Tensor, thresholds: torch.Tensor,
     # decreasing order; the last step reuses the lowest threshold so the
     # trains stay monotone across all T steps
     order = torch.cat([thresholds.flip(0), thresholds[:1]])
-    order = order.to(frames.device).reshape((t_steps,) + (1,) * frames.ndim)
+    # T-1 host floats: an asynchronous copy, so encoding on a device never
+    # waits for the work queued before it
+    order = order.to(frames.device, non_blocking=True)
+    order = order.reshape((t_steps,) + (1,) * frames.ndim)
     return frames[None] > order

@@ -282,7 +282,9 @@ def tap_matrix(kernel: torch.Tensor) -> torch.Tensor:
     perm, _, _, _ = _interlace_tables(geom.kh, geom.kw)
     k_rot = rotate_kernel(kernel)
     flat = k_rot.reshape((geom.n_banks,) + tuple(k_rot.shape[2:]))
-    return flat[torch.tensor(perm, device=kernel.device)]
+    # an asynchronous copy of the index: a blocking one would wait for
+    # the work queued on the device
+    return flat[torch.tensor(perm).to(kernel.device, non_blocking=True)]
 
 
 def _acc_masked(bank: torch.Tensor, tap: torch.Tensor,

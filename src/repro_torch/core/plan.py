@@ -15,6 +15,11 @@ JAX's formulas against a model of one resident tile in
 kernels stage no tile, so the model only chooses a schedule.  Given the
 same budget and one resident tile, the port's plan equals JAX's field by
 field (tests/test_torch_plan.py).
+
+``plan_network(ingest=True)`` sizes the streaming ingestion buffers of
+the input layer (``ingest_capacity``, ``ingest_depth``) and
+``stream_finalize`` picks how streamed input queues are finalized:
+JAX's fields and rules, unchanged.
 """
 from __future__ import annotations
 
@@ -47,10 +52,21 @@ _VM_DTYPES = {None: torch.float32, 8: torch.int8, 16: torch.int16}
 KERNEL_VARIANTS = ("sequential", "banked-cuda", "interlaced-cuda",
                    "fused-handoff")
 
+# Streamed-queue finalizations (input layer only): "ranks" is the
+# sort-free exclusive-cumulative-rank path (``aeq.stream_queues``);
+# "sort" scatters the banks to dense frames and re-compacts them with
+# ``build_aeq_batched``.  Both give the same queues; None resolves by fmap
+# size (``LayerPlan.resolve_stream_finalize``).
+STREAM_FINALIZE = ("ranks", "sort")
+
+# The fmap-size crossover of that default: at or below this many cells
+# the sort finalizes.  JAX's value, kept so the two plans agree field by
+# field; it was measured on another device, not on the card (ROADMAP.md
+# Queue 1, 'Measured tuner and plan cache', re-derives it there).
+_FINALIZE_SORT_MAX_HW = 256
+
 # What the port does not run yet, and where ROADMAP.md lists it.
 NOT_PORTED = {
-    "stream": "streamed (StreamState) input is not ported yet: see "
-              "ROADMAP.md Queue 1, 'Streaming ingestion'",
     "tune": "the measured tuner and plan cache are not ported yet "
             "(ROADMAP.md Queue 1, 'Measured tuner and plan cache'); use "
             "tune='analytic'",
@@ -95,7 +111,12 @@ class LayerPlan:
     vm_tile: tuple[int, int, int]  # halo-padded tile (Hp, Wp, cb)
     sat_bits: Optional[int] = None  # 8/16-bit saturating datapath, None=f32
     event_par: int = 1            # same-column events applied together
+    ingest_capacity: Optional[int] = None  # raw-event buffer depth per
+                                  # stream admission (input layer only)
+    ingest_depth: Optional[int] = None     # time bins per admission window
     variant: Optional[str] = None  # pinned kernel variant (KERNEL_VARIANTS)
+    stream_finalize: Optional[str] = None  # "ranks"/"sort" (input layer
+                                  # only; None = by fmap size)
     geometry: ConvGeometry = GEOM_3X3
 
     def resolve_variant(self) -> str:
@@ -107,6 +128,16 @@ class LayerPlan:
         if self.variant is not None:
             return self.variant
         return "interlaced-cuda" if self.event_par > 1 else "sequential"
+
+    def resolve_stream_finalize(self) -> str:
+        """Effective streamed-queue finalization of this (input) layer: a
+        pinned :attr:`stream_finalize` wins; otherwise fmaps of at most
+        ``_FINALIZE_SORT_MAX_HW`` cells sort and larger ones rank.  Both
+        give the same queues, so the choice is speed only."""
+        if self.stream_finalize is not None:
+            return self.stream_finalize
+        h, w = self.in_hw
+        return "sort" if h * w <= _FINALIZE_SORT_MAX_HW else "ranks"
 
     @property
     def vm_dtype(self) -> torch.dtype:
@@ -128,14 +159,18 @@ class LayerPlan:
         oh, ow = self.out_hw
         pool = f" pool{self.pool}" if self.pool else ""
         par = f", par={self.event_par}" if self.event_par > 1 else ""
+        ing = (f", ingest={self.ingest_capacity}x{self.ingest_depth}"
+               if self.ingest_capacity is not None else "")
         var = f", variant={self.variant}" if self.variant is not None else ""
+        fin = (f", finalize={self.stream_finalize}"
+               if self.stream_finalize is not None else "")
         geo = ("" if self.geometry == GEOM_3X3
                else f", k={self.geometry.describe()}")
         dt = str(self.vm_dtype).replace("torch.", "")
         return (f"LayerPlan({self.name}: {h}x{w}x{self.c_in}{geo} -> "
                 f"{oh}x{ow}x{self.c_out}{pool}, cap={self.capacity}, "
                 f"cb={self.channel_block}, block_e={self.block_e}, "
-                f"vm={self.vm_tile}, {dt}{par}{var})")
+                f"vm={self.vm_tile}, {dt}{par}{var}{fin}{ing})")
 
 
 @dataclass(frozen=True)
@@ -191,6 +226,11 @@ class NetworkPlan:
                     f"{lp!r} geometry {lp.geometry.describe()} does not "
                     f"match cfg layer {idx} kernel {spec.kernel}x"
                     f"{spec.kernel}")
+            if lp.ingest_depth is not None and not (
+                    1 <= lp.ingest_depth <= self.t_steps):
+                raise ValueError(
+                    f"{lp!r} ingest_depth={lp.ingest_depth} must be in "
+                    f"[1, t_steps={self.t_steps}]")
             if lp.variant == "fused-handoff":
                 # the carrier's bank grid derives from (in_hw, geometry);
                 # the consumer's slices assume vm_tile covers that grid
@@ -230,7 +270,10 @@ def plan_conv_layer(
     per_layer: bool = True,
     smem_budget: Optional[int] = None,
     event_par: Optional[int] = 1,
+    ingest_capacity: Optional[int] = None,
+    ingest_depth: Optional[int] = None,
     variant: Optional[str] = None,
+    stream_finalize: Optional[str] = None,
     geometry: ConvGeometry = GEOM_3X3,
 ) -> LayerPlan:
     """Derive one conv layer's plan from its geometry.  ``event_par=None``
@@ -261,6 +304,13 @@ def plan_conv_layer(
     else:
         be = snap_divisor(depth, be)
     out_hw = (-(-h // pool), -(-w // pool)) if pool else (h, w)
+    if (ingest_capacity is None) != (ingest_depth is None):
+        raise ValueError("ingest_capacity and ingest_depth must be set "
+                         "together (both None for non-ingesting layers)")
+    if ingest_capacity is not None and (ingest_capacity < 1
+                                        or ingest_depth < 1):
+        raise ValueError(f"ingest_capacity={ingest_capacity} and "
+                         f"ingest_depth={ingest_depth} must be >= 1")
     if variant is not None and variant not in KERNEL_VARIANTS:
         raise ValueError(f"variant={variant!r} must be one of "
                          f"{KERNEL_VARIANTS} (or None to resolve from "
@@ -270,11 +320,16 @@ def plan_conv_layer(
             f"variant='interlaced-cuda' requires event_par > 1 (got {ep}): "
             f"the interlaced kernel walks event_par-aligned groups of the "
             f"segment-padded queue")
+    if stream_finalize is not None and stream_finalize not in STREAM_FINALIZE:
+        raise ValueError(f"stream_finalize={stream_finalize!r} must be one "
+                         f"of {STREAM_FINALIZE} (or None = by fmap size)")
     return LayerPlan(index=index, name=name, in_hw=in_hw, out_hw=out_hw,
                      c_in=c_in, c_out=c_out, pool=pool, capacity=cap,
                      channel_block=cb, block_e=be, vm_tile=vm_tile,
-                     sat_bits=sat_bits, event_par=ep, variant=variant,
-                     geometry=geometry)
+                     sat_bits=sat_bits, event_par=ep,
+                     ingest_capacity=ingest_capacity,
+                     ingest_depth=ingest_depth, variant=variant,
+                     stream_finalize=stream_finalize, geometry=geometry)
 
 
 def plan_network(
@@ -292,7 +347,10 @@ def plan_network(
     smem_budget: Optional[int] = None,
     t_chunk: Optional[int] = None,
     event_par: Optional[int] | Sequence[Optional[int]] = 1,
+    ingest: bool = False,
+    ingest_capacity: Optional[int] = None,
     variant: Optional[str] | Sequence[Optional[str]] = None,
+    stream_finalize: Optional[str] = None,
     fc_capacity: Optional[int] = None,
     tune: str = "analytic",
 ) -> NetworkPlan:
@@ -303,8 +361,15 @@ def plan_network(
     ``LayerStats.in_spike_counts`` of a calibration run) replace each
     layer's requested capacity with ``aeq.calibrate_capacity`` of its own
     counts (``percentile``, ``margin``, aligned to 8).  ``fc_capacity``
-    routes the head through the event-driven sparse readout.  Streaming
-    ingestion and the measured tuner are not ported yet."""
+    routes the head through the event-driven sparse readout.
+
+    ``ingest=True`` (or an ``ingest_capacity``) sizes the input layer's
+    streaming ingestion: ``ingest_depth`` is the admission window in time
+    bins (the chunk length) and ``ingest_capacity`` the raw-event buffer
+    per admission, by default one input-queue depth of events per (bin,
+    channel), padded to a multiple of 64.  ``stream_finalize`` pins the
+    input layer's streamed-queue finalization.  The measured tuner is
+    not ported yet."""
     if tune != "analytic":
         raise NotImplementedError(f"tune={tune!r}: {NOT_PORTED['tune']}")
     from .csnn import ConvSpec, conv_out_hw
@@ -335,11 +400,20 @@ def plan_network(
         t_chunk = snap_t_chunk(cfg.t_steps, t_chunk)
     plans, hw, c_in = [], tuple(cfg.input_hw), cfg.input_channels
     for ci, (idx, spec) in enumerate(conv_specs):
+        ing_cap = ing_depth = None
+        if ci == 0 and (ingest or ingest_capacity is not None):
+            ing_depth = t_chunk if t_chunk is not None else cfg.t_steps
+            auto = (effective_capacity(caps[ci], hw[0] * hw[1])
+                    * c_in * ing_depth)
+            ing_cap = (ingest_capacity if ingest_capacity is not None
+                       else pad_capacity(auto))
         plans.append(plan_conv_layer(
             idx, f"conv{idx}", hw, c_in, spec.channels, capacity=caps[ci],
             pool=spec.pool, channel_block=cbs[ci], block_e=bes[ci],
             sat_bits=sat_bits, per_layer=per_layer, smem_budget=smem_budget,
-            event_par=eps[ci], variant=variants[ci],
+            event_par=eps[ci], ingest_capacity=ing_cap,
+            ingest_depth=ing_depth, variant=variants[ci],
+            stream_finalize=stream_finalize if ci == 0 else None,
             geometry=ConvGeometry(spec.kernel, spec.kernel)))
         hw, c_in = conv_out_hw(hw, spec), spec.channels
     return NetworkPlan(layers=tuple(plans), t_steps=cfg.t_steps,

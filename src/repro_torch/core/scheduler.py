@@ -35,6 +35,10 @@ carrier, and the runner returns the carrier in place of the dense
 spikes.  At the network edge the fused layer builds its carrier from the
 dense input with ``aeq.build_fused_handoff``.
 
+Streamed input.  ``run_conv_layer_batched_chunk_streamed`` runs the same
+chunk body over a :class:`aeq.StreamState` of ingested DVS events: only
+the event sets are built from the banks instead of dense frames.
+
 One sample.  A batch of one (``run_conv_layer_planned`` runs the same
 body on one) launches the single-queue kernels for its queue variants
 (``event_conv_cuda`` and ``event_conv_cuda_interlaced``, the same
@@ -62,9 +66,10 @@ from repro_torch.kernels.event_conv.kernel import (
 from repro_torch.kernels.threshold_pool.kernel import (
     threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 
-from .aeq import (BatchedEventQueue, FusedHandoff, build_aeq_batched,
-                  build_bank_masks, build_fused_handoff, check_handoff,
-                  handoff_shape, segment_pad)
+from .aeq import (BatchedEventQueue, FusedHandoff, StreamState,
+                  build_aeq_batched, build_bank_masks, build_fused_handoff,
+                  check_handoff, fused_handoff_from_banks, handoff_shape,
+                  segment_pad, stream_frames, stream_queues)
 from .event_conv import conv2d_same, tap_matrix
 from .geometry import ConvGeometry
 from .plan import LayerPlan, plan_conv_layer
@@ -150,33 +155,103 @@ def run_conv_layer_batched_chunk(
             ho = spikes_in
         else:  # the network edge: dense input frames
             ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
-        t_steps, c_in, b_sz = ho.masks.shape[:3]
-        # the demand counts give the dense frames' zero share exactly
-        # (integer sums below 2**24 in float32)
-        total = ho.count.to(torch.float32).sum(dim=(0, 2))
-        sparsity = 1.0 - total / float(t_steps * h * w * c_in)
-        return _run_chunk_from_events(
-            ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in),
-            kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
+        return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
+                                       carry, emit)
     b_sz, t_steps, h, w, c_in = spikes_in.shape
     fmaps = spikes_in.permute(1, 0, 4, 2, 3)  # (t, B, C_in, H, W)
     if variant == "banked-cuda":
-        banked = build_bank_masks(fmaps, lp.capacity, lp.geometry)
-        # (t, B, C_in, nb, HB, WB) -> the carrier layout (t, C_in, B, nb,
-        # HB+2, WB+2): one zero macro cell per side
-        m = banked.masks.transpose(1, 2)
-        events = m.new_zeros(m.shape[:-2] + (m.shape[-2] + 2, m.shape[-1] + 2))
-        events[..., 1:-1, 1:-1] = m
-        counts = banked.count
+        events, counts = _bank_events(fmaps, lp)
     else:
-        events = build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry)
-        if lp.event_par > 1:
-            events = segment_pad(events, lp.event_par, lp.geometry)
-        counts = events.count
+        events, counts = _queue_events(
+            build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry), lp)
     sparsity = 1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
     return _run_chunk_from_events(
         events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
         kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
+
+
+def run_conv_layer_batched_chunk_streamed(
+    stream: StreamState,
+    kernels: torch.Tensor,
+    bias: torch.Tensor,
+    v_t,
+    lp: LayerPlan,
+    carry: ConvCarry,
+    *,
+    emit: Emit = None,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
+    """:func:`run_conv_layer_batched_chunk` over ingested input events.
+
+    stream: :class:`StreamState` with banks (B, t_chunk, C_in, n_banks,
+    HB, WB).  Only the event sets are built differently, one route per
+    variant: the queue variants finalize the banks with
+    ``aeq.stream_queues`` (``lp.resolve_stream_finalize() == "sort"``:
+    ``build_aeq_batched`` over the dense bank view), then ``segment_pad``
+    as the binned path; ``"banked-cuda"`` builds its bank masks from the
+    dense bank view; ``"fused-handoff"`` takes its carrier from the banks
+    (``aeq.fused_handoff_from_banks``), with no dense frame at all.  Equal
+    to binning the same events into frames and running the dense chunk.
+    """
+    h, w = lp.in_hw
+    b_sz, t_steps, c_in = stream.banks.shape[:3]
+    variant = lp.resolve_variant()
+    if variant == "fused-handoff":
+        ho = fused_handoff_from_banks(stream.banks, lp.capacity, (h, w),
+                                      lp.geometry)
+        return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
+                                       carry, emit)
+    frames = stream_frames(stream, (h, w), lp.geometry)  # (B, t, C_in, H, W)
+    fmaps = frames.transpose(0, 1)                       # (t, B, C_in, H, W)
+    if variant == "banked-cuda":
+        events, counts = _bank_events(fmaps, lp)
+    elif lp.resolve_stream_finalize() == "sort":
+        events, counts = _queue_events(
+            build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry), lp)
+    else:
+        queues = stream_queues(stream, lp.capacity, (h, w),
+                               geometry=lp.geometry)
+        events, counts = _queue_events(BatchedEventQueue(
+            *(None if x is None else x.transpose(0, 1) for x in queues)), lp)
+    sparsity = 1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
+    return _run_chunk_from_events(
+        events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
+        kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
+
+
+def _bank_events(fmaps: torch.Tensor, lp: LayerPlan
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(t, B, C_in, H, W) frames -> the banked kernel's padded masks (t,
+    C_in, B, nb, HB+2, WB+2), one zero macro cell per side, and the
+    (t, B, C_in) demand."""
+    banked = build_bank_masks(fmaps, lp.capacity, lp.geometry)
+    m = banked.masks.transpose(1, 2)
+    events = m.new_zeros(m.shape[:-2] + (m.shape[-2] + 2, m.shape[-1] + 2))
+    events[..., 1:-1, 1:-1] = m
+    return events, banked.count
+
+
+def _queue_events(queues: BatchedEventQueue, lp: LayerPlan
+                  ) -> tuple[BatchedEventQueue, torch.Tensor]:
+    """(t, B, C_in) queues, segment-padded when ``lp.event_par`` > 1, and
+    their demand."""
+    if lp.event_par > 1:
+        queues = segment_pad(queues, lp.event_par, lp.geometry)
+    return queues, queues.count
+
+
+def _run_chunk_from_carrier(ho: FusedHandoff, hw: tuple[int, int],
+                            kernels, bias, v_t, lp: LayerPlan,
+                            carry: ConvCarry, emit: Emit):
+    """The fused-handoff chunk over carrier ``ho``; its demand counts give
+    the dense frames' zero share exactly (integer sums below 2**24 in
+    float32)."""
+    h, w = hw
+    t_steps, c_in, b_sz = ho.masks.shape[:3]
+    total = ho.count.to(torch.float32).sum(dim=(0, 2))
+    sparsity = 1.0 - total / float(t_steps * h * w * c_in)
+    return _run_chunk_from_events(
+        ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in),
+        kernels, bias, v_t, lp, carry, variant="fused-handoff", emit=emit)
 
 
 def _run_chunk_from_events(

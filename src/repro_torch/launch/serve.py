@@ -1,4 +1,4 @@
-"""Serving launcher of the port: batched event-driven CSNN inference.
+"""Serving launcher of the port: event-driven CSNN inference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
       --requests 8                      # on the GPU (default --device cuda)
@@ -6,19 +6,42 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
       --smoke --requests 8 --device cpu # plain PyTorch path on the CPU
 
-Runs one batch of random image requests (weights from a seed) through
-``snn_apply_batched`` under the analytic plan and prints one
-``req N: class K`` line per request and a throughput line.  The first
-call is timed apart as warmup: on the GPU it includes building the
-kernels.  ``--engine`` and ``--stream`` are not ported yet.
+  # the async micro-batching engine (flush statistics line):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
+      --requests 8 --engine
+
+  # continuous batching: slot-level refill between t_chunk time steps
+  # (chunk / refill / slot-utilization line):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
+      --requests 8 --engine --continuous --t-chunk 1
+
+  # streaming DVS ingestion: requests are raw (t, y, x, polarity) event
+  # traces of synthetic moving-edge scenes, admitted into the interlace
+  # banks with no frame encode or sort (implies --engine --continuous):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
+      --requests 8 --stream
+
+Serves random image requests (weights from a seed) under the analytic
+plan and prints one ``req N: class K`` line per request and a throughput
+line.  Without ``--engine`` one batch goes through ``snn_apply_batched``;
+with it, the requests are submitted one by one to ``CSNNEngine``.  The
+first call (``warmup`` for the engine) is timed apart: on the GPU it
+includes building the kernels.  ``--verbose`` prints the plan and, for
+image requests, the per-layer event counts.
 """
 import argparse
 import statistics
 import sys
 import time
 
+# bound on one pass of the request list through the engine: a hung
+# future fails the run instead of stalling it
+ENGINE_TIMEOUT_S = 600.0
+
 
 def serve_csnn(args) -> int:
+    from dataclasses import replace
+
     import torch
 
     from repro_torch.configs import ARCHS
@@ -26,56 +49,105 @@ def serve_csnn(args) -> int:
                                        snn_apply_batched)
     from repro_torch.core.plan import plan_network
 
-    if args.engine or args.stream:
-        raise NotImplementedError(
-            "--engine/--stream (the async micro-batching engine and "
-            "streaming DVS ingestion) are not ported yet: see ROADMAP.md "
-            "Queue 1, 'Serving engine' and 'Streaming ingestion'")
+    # --stream implies --continuous implies --engine
+    args.continuous = args.continuous or args.stream
+    args.engine = args.engine or args.continuous
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available "
                          "(pass --device cpu for the plain path)")
     mod = ARCHS[args.arch]
     cfg = mod.SMOKE if args.smoke else mod.FULL
+    if args.stream:  # polarity (OFF/ON) maps onto the 2-channel input path
+        cfg = replace(cfg, input_channels=2)
     params = init_params(cfg, seed=0, device=device)
     h, w = cfg.input_hw
-    imgs = torch.rand((args.requests, h, w, cfg.input_channels),
-                      generator=torch.Generator().manual_seed(1))
+    if args.stream:
+        from repro_torch.data.dvs import dvs_moving_edges
+        reqs, _ = dvs_moving_edges(args.requests, cfg.t_steps, (h, w), seed=1)
+        n_events = sum(tr.shape[0] for tr in reqs)
+    else:
+        imgs = torch.rand((args.requests, h, w, cfg.input_channels),
+                          generator=torch.Generator().manual_seed(1))
+        reqs = list(imgs)
     event_par = (None if args.event_par < 0
                  else args.event_par if args.event_par else 1)
     plan = plan_network(cfg, capacity=args.capacity,
                         channel_block=args.channel_block,
-                        batch_tile=args.batch_tile, event_par=event_par)
+                        batch_tile=args.batch_tile, event_par=event_par,
+                        ingest=args.stream)
+    if args.verbose:
+        print(plan)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    def run():
-        spikes = encode_input(imgs.to(device), cfg)
-        return snn_apply_batched(params, spikes, cfg, plan,
-                                 collect_stats=False)
+    extra = ""
+    if args.engine:
+        from repro_torch.serve.csnn_engine import CSNNEngine, CSNNServeConfig
+        max_batch = -(-args.requests // args.batch_tile) * args.batch_tile
+        engine = CSNNEngine(params, cfg, plan, CSNNServeConfig(
+            max_batch=max_batch, max_delay_ms=args.deadline_ms,
+            continuous=args.continuous, t_chunk=args.t_chunk,
+            stream=args.stream))
+        warm_s = engine.warmup()
 
-    t0 = time.perf_counter()
-    logits = run()
-    sync()
-    warm_s = time.perf_counter() - t0
-    times = []
-    for _ in range(max(args.iters, 1)):
+        def run():
+            return engine.run_requests(reqs, timeout=ENGINE_TIMEOUT_S)
+    else:
+        def run():
+            spikes = encode_input(imgs.to(device), cfg)
+            return snn_apply_batched(params, spikes, cfg, plan,
+                                     collect_stats=False)
+
         t0 = time.perf_counter()
         run()
         sync()
+        warm_s = time.perf_counter() - t0
+    times = []
+    for _ in range(max(args.iters, 1)):
+        t0 = time.perf_counter()
+        logits = run()
+        sync()
         times.append(time.perf_counter() - t0)
     dt = statistics.median(times)
+    if args.continuous:
+        st = engine.stats
+        extra = (f"engine: chunks={st['chunks']} admitted={st['admitted']} "
+                 f"refills={st['refills']} "
+                 f"slot_utilization={engine.slot_utilization:.0%} "
+                 f"wait_ms_max={st['wait_ms_max']:.1f} "
+                 f"deadline_misses={st['deadline_misses']}")
+        if args.stream:
+            extra += (f"\nstream: events={n_events} "
+                      f"({n_events / dt:.0f} events/s admitted)")
+    elif args.engine:
+        st = engine.stats
+        extra = (f"engine: batches={st['batches']} "
+                 f"full={st['flushes_full']} "
+                 f"deadline={st['flushes_deadline']} "
+                 f"padded_slots={st['padded_slots']}")
     for i, p in enumerate(logits.argmax(dim=-1).tolist()):
         print(f"req {i}: class {p}")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    mode = ("stream" if args.stream else "continuous" if args.continuous
+            else "engine" if args.engine else "batched")
     print(f"warmup: {warm_s:.2f} s (first call; excluded from throughput)")
     print(f"throughput: {args.requests / dt:.1f} samples/s (median of "
           f"{len(times)}) (batch={args.requests}, T={cfg.t_steps}, "
           f"capacity={args.capacity}, channel_block={args.channel_block}, "
-          f"mode=batched, device={where})")
+          f"mode={mode}, device={where})")
+    if extra:
+        print(extra)
+    if args.verbose and not args.stream:
+        _, stats = snn_apply_batched(params, encode_input(imgs.to(device),
+                                                          cfg), cfg, plan)
+        for lp, st in zip(plan.layers, stats):
+            print(f"layer {lp.name}: events={int(st.in_spike_counts.sum())} "
+                  f"peak_queue={int(st.in_spike_counts.max())} "
+                  f"capacity={lp.capacity} block_e={st.event_block}")
     return 0
 
 
@@ -93,15 +165,30 @@ def main(argv=None):
                     help="interlaced event-parallel width: -1 sizes it per "
                          "layer (default), 0/1 keeps the sequential conv "
                          "unit, >1 pins the width")
-    ap.add_argument("--batch-tile", type=int, default=8)
+    ap.add_argument("--batch-tile", type=int, default=8,
+                    help="engine pads partial batches to this multiple")
     ap.add_argument("--iters", type=int, default=3,
                     help="steady-state timing iterations")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain path)")
     ap.add_argument("--engine", action="store_true",
-                    help="not ported yet (raises)")
+                    help="route requests through the async micro-batching "
+                         "CSNNEngine")
+    ap.add_argument("--continuous", action="store_true",
+                    help="with --engine: continuous batching — slot-level "
+                         "refill between t_chunk steps instead of "
+                         "run-to-completion flushes")
     ap.add_argument("--stream", action="store_true",
-                    help="not ported yet (raises)")
+                    help="serve raw DVS event traces through the "
+                         "continuous engine's streaming admission "
+                         "(implies --engine --continuous)")
+    ap.add_argument("--t-chunk", type=int, default=0,
+                    help="continuous-mode refill granularity in time steps "
+                         "(0 = plan default; snapped to a divisor of T)")
+    ap.add_argument("--deadline-ms", type=float, default=10.0,
+                    help="engine flush deadline for partial batches")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the NetworkPlan and per-layer event counts")
     return serve_csnn(ap.parse_args(argv))
 
 

@@ -372,3 +372,51 @@ def test_sequential_gather_equals_plain_version(cuda, dtype, k):
     kern = (torch.randn((2, k, k, 8), generator=g) * big).to(dtype).to(cuda)
     assert torch.equal(event_conv_cuda_batched(vm, coords, valid, kern),
                        event_conv_ref_batched(vm, coords, valid, kern))
+
+
+@pytest.mark.gpu
+def test_engine_modes_equal_snn_apply_batched_on_card(cuda):
+    """Micro-batching, continuous refill and streaming DVS admission on
+    SMOKE: every request's logits equal the card's snn_apply_batched on
+    the same inputs (streams: the binned frames of the same events)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.csnn import (encode_input, init_params,
+                                       snn_apply_batched)
+    from repro_torch.core.plan import plan_network
+    from repro_torch.data.dvs import dvs_moving_edges, events_to_frames
+    from repro_torch.serve.csnn_engine import CSNNEngine, CSNNServeConfig
+
+    cfg = csnn_paper.SMOKE
+    params = init_params(cfg, seed=0, device=cuda)
+    plan = plan_network(cfg, capacity=64, channel_block=4, batch_tile=4,
+                        event_par=None)
+    imgs = torch.rand((7, 12, 12, 1),
+                      generator=torch.Generator().manual_seed(1))
+    want = snn_apply_batched(params, encode_input(imgs.to(cuda), cfg), cfg,
+                             plan, collect_stats=False).cpu()
+    for serve_cfg in (CSNNServeConfig(max_batch=4, max_delay_ms=5.0),
+                      CSNNServeConfig(max_batch=4, continuous=True, slots=4,
+                                      t_chunk=1)):
+        engine = CSNNEngine(params, cfg, plan, serve_cfg)
+        engine.warmup()
+        assert torch.equal(engine.run_requests(list(imgs), timeout=120.0),
+                           want)
+    scfg = dataclasses.replace(cfg, input_channels=2)
+    sparams = init_params(scfg, seed=0, device=cuda)
+    traces, _ = dvs_moving_edges(5, scfg.t_steps, scfg.input_hw, seed=1)
+    frames = torch.from_numpy(np.stack([events_to_frames(
+        tr, scfg.t_steps, scfg.input_hw) for tr in traces]))
+    for finalize in ("ranks", "sort"):
+        splan = plan_network(scfg, capacity=64, channel_block=4,
+                             event_par=None, ingest=True,
+                             stream_finalize=finalize)
+        want = snn_apply_batched(sparams, frames.to(cuda), scfg, splan,
+                                 collect_stats=False).cpu()
+        engine = CSNNEngine(sparams, scfg, splan, CSNNServeConfig(
+            max_batch=4, continuous=True, stream=True, t_chunk=1))
+        engine.warmup()
+        assert torch.equal(engine.run_requests(traces, timeout=120.0), want)

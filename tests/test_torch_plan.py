@@ -37,6 +37,7 @@ def _same_plan(jp, tp):
             if f == "variant":
                 jv = JAX_VARIANT_NAMES.get(jv, jv)
             assert jv == tv, (jl.name, f, jv, tv)
+        assert jl.resolve_stream_finalize() == tl.resolve_stream_finalize()
     for f in ("t_steps", "t_chunk", "fc_capacity", "batch_tile"):
         assert getattr(jp, f) == getattr(tp, f), f
     assert jp.total_event_slots == tp.total_event_slots
@@ -51,6 +52,12 @@ def _same_plan(jp, tp):
          sat_bits=8, t_chunk=2),
     dict(capacity=500, channel_block=32, event_par=None, budget=40_000),
     dict(capacity=256, channel_block=8, event_par=None, budget=3_000),
+    # streaming ingestion sizing (the stream serve plan) and its pins
+    dict(capacity=256, channel_block=8, event_par=None, ingest=True),
+    dict(capacity=64, channel_block=4, event_par=1, ingest=True, t_chunk=2,
+         stream_finalize="sort"),
+    dict(capacity=100, channel_block=8, event_par=1, ingest_capacity=512,
+         stream_finalize="ranks"),
 ])
 def test_plan_equals_jax_field_by_field(cfgs, knobs):
     jcfg, tcfg = cfgs

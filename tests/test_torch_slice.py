@@ -145,7 +145,8 @@ def test_init_params_shapes_match_jax_and_seed():
 def test_unported_options_raise():
     """The pinned fused/banked variants run (and equal the default plan);
     fc_capacity runs, and at a covering capacity equals the dense head;
-    StreamState input and the measured tuner still raise."""
+    the measured tuner still raises, and so does a chunk that is neither
+    spikes nor a StreamState."""
     cfg = tpaper.SMOKE
     params = tc.init_params(cfg, device="cpu")
     spikes = torch.rand((1, 4, 12, 12, 1),
@@ -164,7 +165,7 @@ def test_unported_options_raise():
                                collect_stats=False)
     assert torch.equal(got, want)
     state = tc.init_state(params, cfg, tplan(cfg), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="StreamState"):
         tc.snn_step_chunk(params, state, object(), cfg, tplan(cfg))
 
 
@@ -174,8 +175,18 @@ def test_serve_cli_on_cpu(capsys):
                        "--device", "cpu", "--iters", "1"]) == 0
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "samples/s" in out and "device=cpu" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--smoke", "--device", "cpu", "--engine"])
+    # the engine modes (JAX's output lines)
+    base = ["--smoke", "--device", "cpu", "--requests", "3", "--iters", "1"]
+    for flags, mode, line in (
+            (["--engine", "--batch-tile", "4"], "engine",
+             "engine: batches=1 full=0 deadline=1 padded_slots=1"),
+            (["--engine", "--continuous", "--t-chunk", "1"], "continuous",
+             "engine: chunks=4 admitted=3 refills=0 slot_utilization="),
+            (["--stream"], "stream", "stream: events=")):
+        assert serve.main(base + flags) == 0
+        out = capsys.readouterr().out
+        assert out.count("req ") == 3 and f"mode={mode}," in out, out
+        assert line in out, out
 
 
 def test_fc_head_batched_matches_jax():
