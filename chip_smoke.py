@@ -59,19 +59,32 @@ Phases (any failure exits non-zero before the result line):
    ``"fused-handoff"``; every request's logits ``torch.equal`` the card's
    ``snn_apply_batched`` on the same inputs (streams: the binned frames),
    and each streamed forward equals the CPU plain path (stats, state);
+   then the measured tuner (``tune="measured"``, a plan cache in a
+   temporary directory): FULL at the serve knobs, every candidate's time
+   and roofline, the winners and the tuning wall time; one B=8 forward
+   under the tuned plan held against the serve plan's card run (exact,
+   logits ``torch.equal``); a ``tune="cached"`` reload with no
+   measurement run; a second fresh tune, whose winners are compared; a
+   continuous engine pass with ``CSNNEngine(tune="cached")``, its logits
+   ``torch.equal`` to ``snn_apply_batched``; and ``ingest=True`` tunes of
+   FULL and SMOKE with 2 polarities (784 and 144 cells), printing both
+   streamed finalizations' times, each tuned streamed forward held
+   against the CPU plain path;
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
-   kernels of its path (``PATH_KERNELS``) and no other, each exactly once
-   per (channel block, time step) of its layers (``exact_launches``: at
-   B=8 the fused run 50 banked convs, 40 emits and 10 base thresholds,
-   every other run 50 + 50; the micro-batching engine 2 x (50 + 50); the
-   continuous engine 10 conv + 10 threshold per chunk, the conv through
-   the single-queue kernel at bucket 1; each stream engine run as one
-   forward of its plan);
+   kernels its plan's layers resolve to and no other, each exactly once
+   per (channel block, time step) of its layers (``exact_launches``,
+   derived from ``LayerPlan.resolve_variant``: at B=8 the fused run 50
+   banked convs, 40 emits and 10 base thresholds, every other run 50 +
+   50; the micro-batching engine 2 x (50 + 50); the continuous engine 10
+   conv + 10 threshold per chunk, the conv through the single-queue
+   kernel at bucket 1; each stream engine run as one forward of its
+   plan; the tuned runs by their winners);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` (batched, ``--engine``, ``--engine --continuous
-   --t-chunk 1`` and ``--stream``) and ``python -m
-   repro_torch.launch.quickstart`` and print their lines;
+   --t-chunk 1``, ``--stream``, ``--tune measured`` and ``--tune cached``
+   with ``REPRO_TORCH_PLAN_CACHE`` in the temporary directory) and
+   ``python -m repro_torch.launch.quickstart`` and print their lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -81,9 +94,10 @@ Phases (any failure exits non-zero before the result line):
    base threshold kernel at conv0, conv1 and conv2 (B=8) and conv1 for one
    sample, beside the launch floor: a one-element ``add_`` in the same
    graph harness);
-   then end-to-end samples/s of every path and a ``torch.profiler``
-   breakdown of one forward of the serve, event_par=1, fused and
-   banked-cuda plans and of one single-sample forward under the serve
+   then end-to-end samples/s of every path (the five B=8 plans, the
+   tuned one included, timed in turns) and a ``torch.profiler``
+   breakdown of one forward of the serve, event_par=1, fused, banked-cuda
+   and tuned plans and of one single-sample forward under the serve
    plan and event_par=1; then samples/s of the micro-batching,
    continuous and stream engines at B=8 / 8 slots beside
    ``snn_apply_batched`` of the same inputs, and a ``torch.profiler``
@@ -99,16 +113,13 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 FLOP/s
-# outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 B = 8
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-4)  # FC float64 sums in another order
 
@@ -708,68 +719,54 @@ def hold_same(name, got, want) -> None:
     print(f"{name}: equal (spikes, counts, state, FC drive exact)")
 
 
-# The kernels each main-path run launches, and no other: the JSON line
-# reports each kernel's count from the first run listed here that
-# launches it.  The batched runs are one snn_apply_batched forward (B=8);
-# the single runs one snn_apply forward (one sample) under the same plan.
-PATH_KERNELS = {
-    "serve plan (interlaced)": ("event_conv_interlaced", "threshold_pool"),
-    "event_par=1 (sequential)": ("event_conv_seq", "threshold_pool"),
-    "fused-handoff": ("event_conv_banked", "threshold_pool_emit",
-                      "threshold_pool"),
-    "banked-cuda": ("event_conv_banked", "threshold_pool"),
-    "single, serve plan (interlaced)": ("event_conv_interlaced_single",
-                                        "threshold_pool"),
-    "single, event_par=1 (sequential)": ("event_conv_seq_single",
-                                         "threshold_pool"),
-    "single, fused-handoff": ("event_conv_banked", "threshold_pool"),
-    "single, banked-cuda": ("event_conv_banked", "threshold_pool"),
-    # the serving engine on the serve plan (phase 4, engine): every batch
-    # of the micro-batching engine is one B=8 forward; the continuous
-    # engine steps buckets of 1 (single-queue kernels) to 8; each stream
-    # engine run is 5 chunks of all 8 slots
-    "engine, micro-batching": ("event_conv_interlaced", "threshold_pool"),
-    "engine, continuous": ("event_conv_interlaced",
-                           "event_conv_interlaced_single", "threshold_pool"),
-    "engine, stream": ("event_conv_interlaced", "threshold_pool"),
-    "engine, stream fused-handoff": ("event_conv_banked",
-                                     "threshold_pool_emit", "threshold_pool"),
-}
+# The conv unit each resolved variant launches (a batch of one takes the
+# single-queue kernels of the queue variants).
+CONV_KERNEL = {"sequential": "event_conv_seq",
+               "interlaced-cuda": "event_conv_interlaced",
+               "banked-cuda": "event_conv_banked",
+               "fused-handoff": "event_conv_banked"}
 BATCHED_PATHS = ("serve plan (interlaced)", "event_par=1 (sequential)",
                  "fused-handoff", "banked-cuda")
 
 
-def exact_launches(path, cfg, plan, buckets=()) -> dict:
-    """Launches of each kernel of ``path`` in one forward: its conv unit
-    and its threshold unit once per (channel block, time step) of every
-    conv layer over all input channels; on the batched fused-handoff path
-    a layer whose consumer is pinned to ``"fused-handoff"`` thresholds
-    through the emit kernel, the last layer through the base mode.  With
-    ``buckets`` (the continuous engine at one time step per chunk: the
-    occupancy bucket of each chunk), the same once per channel block of
-    every chunk, the conv unit through its single-queue kernel at bucket
-    1."""
+def exact_launches(plan, steps, *, batch=B, emit=True, buckets=()) -> dict:
+    """Launches of each kernel in ``steps`` time steps under ``plan``,
+    derived from its layers' resolved variants: each conv layer launches
+    its conv unit and its threshold unit once per (channel block, time
+    step) over all input channels.  A batch of one takes the single-queue
+    kernels of the queue variants.  With ``emit`` (the batched runners;
+    ``snn_apply`` emits nothing), a layer whose consumer resolves to
+    ``"fused-handoff"`` thresholds through the emit kernel, every other
+    layer through the base mode.  With ``buckets`` (the continuous engine
+    at one time step per chunk: each chunk's occupancy bucket), the sum
+    of one step per chunk at that bucket."""
     if buckets:
-        per_t = sum(lp.c_out // lp.channel_block for lp in plan.layers)
-        n1 = sum(b == 1 for b in buckets)
-        return {"event_conv_interlaced": per_t * (len(buckets) - n1),
-                "event_conv_interlaced_single": per_t * n1,
-                "threshold_pool": per_t * len(buckets)}
-    blocks = [cfg.t_steps * lp.c_out // lp.channel_block
-              for lp in plan.layers]
-    if path not in ("fused-handoff", "engine, stream fused-handoff"):
-        return {k: sum(blocks) for k in PATH_KERNELS[path]}
-    emit = sum(n for n, nxt in zip(blocks, plan.layers[1:])
-               if nxt.resolve_variant() == "fused-handoff")
-    return {"event_conv_banked": sum(blocks), "threshold_pool_emit": emit,
-            "threshold_pool": sum(blocks) - emit}
+        out = {}
+        for b in buckets:
+            for k, n in exact_launches(plan, 1, batch=b, emit=emit).items():
+                out[k] = out.get(k, 0) + n
+        return out
+    out = {}
+    nxt = [lp.resolve_variant() for lp in plan.layers[1:]] + [None]
+    for lp, consumer in zip(plan.layers, nxt):
+        n = steps * lp.c_out // lp.channel_block
+        variant = lp.resolve_variant()
+        conv = CONV_KERNEL[variant]
+        if batch == 1 and variant in ("sequential", "interlaced-cuda"):
+            conv += "_single"
+        thr = ("threshold_pool_emit" if emit and consumer == "fused-handoff"
+               else "threshold_pool")
+        for k in (conv, thr):
+            out[k] = out.get(k, 0) + n
+    return out
 
 
 def counted(path, fn, launches, exact):
     """Run ``fn`` from launch counters set to 0 and return its result;
-    fail unless it launched every kernel of ``path`` exactly ``exact[k]``
+    fail unless it launched every kernel of ``exact`` exactly ``exact[k]``
     times and no other kernel (``exact``: a dict, or a function giving it
-    after the run)."""
+    after the run).  The JSON line reports each kernel's count from the
+    first run that launched it."""
     import torch
 
     from repro_torch.kernels import runtime
@@ -780,10 +777,10 @@ def counted(path, fn, launches, exact):
     if callable(exact):
         exact = exact()
     print(f"launches, {path}: {counts}")
-    kernels = PATH_KERNELS[path]
+    kernels = {k for k, n in exact.items() if n}
+    if not kernels or kernels - counts.keys():
+        fail(f"the {path} path expects kernels {sorted(kernels)}")
     for k, n in counts.items():
-        if k in kernels and n <= 0:
-            fail(f"kernel {k} was never launched on the {path} path")
         if k not in kernels and n:
             fail(f"kernel {k} was launched {n}x on the {path} path")
         if k in kernels and n != exact[k]:
@@ -801,7 +798,7 @@ def to_cpu(p):
 def main_path(dev, cfg, wcfg):
     """Phases 4-5: the batched main paths on the card, each held against
     the CPU plain path.  Returns (launch counts per kernel, params,
-    images, plans by path name, CPU forwards by path name)."""
+    images, plans by path name, the serve plan's card run)."""
     import torch
 
     from repro_torch.core.csnn import ConvSpec, encode_input, init_params
@@ -824,7 +821,7 @@ def main_path(dev, cfg, wcfg):
     for path in BATCHED_PATHS:
         got[path] = counted(path, lambda p=plans[path]: forward(
             params, spikes, cfg, p), launches,
-            exact_launches(path, cfg, plans[path]))
+            exact_launches(plans[path], cfg.t_steps))
     for path, plan in plans.items():
         cpu[path] = forward(to_cpu(params), spikes.cpu(), cfg, plan)
         hold(f"csnn_paper.FULL {path}", got[path], cpu[path])
@@ -848,7 +845,7 @@ def main_path(dev, cfg, wcfg):
                              event_par=ep, variant=variant)
         hold(f"csnn_wide.FULL {name}", forward(wparams, wspikes, wcfg, wplan),
              forward(to_cpu(wparams), wspikes.cpu(), wcfg, wplan))
-    return launches, params, imgs, plans
+    return launches, params, imgs, plans, serve
 
 
 def check_fc_capacity(params, spikes, cfg, plan, card, cpu) -> None:
@@ -921,7 +918,8 @@ def single_path(dev, cfg, params, plans, launches):
     for path in BATCHED_PATHS:
         plan, name = plans[path], f"single, {path}"
         runs = [counted(name, lambda: snn_apply(params, spikes[0], cfg, plan),
-                        launches, exact_launches(name, cfg, plan))]
+                        launches, exact_launches(plan, cfg.t_steps, batch=1,
+                                                 emit=False))]
         runs += [snn_apply(params, spikes[b], cfg, plan) for b in range(1, B)]
         logits = torch.stack([r[0] for r in runs]).cpu()
         blogits, bstats = snn_apply_batched(params, spikes, cfg, plan)
@@ -1111,8 +1109,8 @@ def engine_path(dev, cfg, params, plan, launches):
 
     name = "engine, micro-batching"  # two B=8 forwards
     got = counted(name, lambda: no_sync(two_waves), launches,
-                  {k: 2 * n for k, n in exact_launches(name, cfg,
-                                                       plan).items()})
+                  {k: 2 * n for k, n in exact_launches(
+                      plan, cfg.t_steps).items()})
     st = micro.stats
     if (st["flushes_full"], st["flushes_deadline"], st["padded_slots"],
             st["batches"]) != (1, 1, 5, 2):
@@ -1128,7 +1126,7 @@ def engine_path(dev, cfg, params, plan, launches):
     name = "engine, continuous"
     got = counted(name, lambda: no_sync(lambda: serve_all(
         cont, list(imgs), stagger=True)), launches,
-        lambda: exact_launches(name, cfg, plan, buckets))
+        lambda: exact_launches(plan, 1, buckets=buckets))
     st = cont.stats
     if not (st["refills"] > 0 and st["admitted"] == st["retired"] == 12):
         fail(f"{name}: stats {st} (want refills and 12 admitted and "
@@ -1153,12 +1151,179 @@ def engine_path(dev, cfg, params, plan, launches):
         eng.warmup()
         got = counted(name, lambda e=eng: no_sync(
             lambda: serve_all(e, traces)), launches,
-            exact_launches(name, scfg, splan))
+            exact_launches(splan, scfg.t_steps))
         check(f"csnn_paper.FULL 2-polarity {name}", got, swant, eng)
         hold(f"csnn_paper.FULL 2-polarity streamed forward, {name[8:]}",
              forward(sparams, StreamState(banks), scfg, splan),
              forward(to_cpu(sparams), StreamState(banks.cpu()), scfg, splan))
     return (scfg, sparams, traces, banks, frames), splans
+
+
+# ------------------------------------------------- phase 4, tuned plan
+TUNE_KNOBS = dict(capacity=256, channel_block=8, event_par=None, batch_tile=8)
+
+
+def tune_entry(path) -> dict:
+    """The one entry of a plan cache file that one tune wrote."""
+    (entry,) = json.loads(Path(path).read_text())["entries"].values()
+    return entry
+
+
+def print_tune(name, entry, seconds, runs) -> None:
+    """Every candidate's measured and modelled time, then the winners."""
+    print(f"tune {name}: {runs} measurement runs in {seconds:.2f} s wall")
+    for key, us in entry["measured_us"].items():
+        model = entry["model_us"].get(key)
+        print(f"  {key}: measured {us} us"
+              + ("" if model is None else f", roofline {model} us"))
+    w = entry["winners"]
+    print(f"  winners: {[(la['variant'], la['event_par'], la['block_e']) for la in w['layers']]}"
+          f", per_layer={w['per_layer']}, t_chunk={w['t_chunk']}, "
+          f"stream_finalize={w['stream_finalize']}")
+
+
+def winners_key(entry) -> tuple:
+    w = entry["winners"]
+    return (tuple((la["variant"], la["event_par"], la["block_e"])
+                  for la in w["layers"]),
+            w["per_layer"], w["t_chunk"], w["stream_finalize"])
+
+
+def tuned_path(dev, cfg, params, imgs, serve_run, launches, tmp):
+    """Phase 4, the measured tuner on FULL (B=8): a measured tune of the
+    serve knobs (every candidate's time and roofline, the winners, the
+    tuning wall time); one forward under the tuned plan, launching
+    exactly the kernels its layers' variants name, held against the serve
+    plan's card run (spikes, counts, state and FC drive exact; logits
+    ``torch.equal``); a ``tune="cached"`` reload that must measure
+    nothing and rebuild the same plan; a second fresh measured tune, whose
+    winners are compared (printed, not held); then a continuous engine
+    pass with ``CSNNEngine(tune="cached")`` over the engine's own plan
+    knobs (tuned first into the same cache), under ``no_sync``, whose
+    logits must equal ``snn_apply_batched`` of its plan and of the tuned
+    plan.  Returns the tuned plan."""
+    import torch
+
+    from repro_torch.core.csnn import encode_input, snn_apply_batched
+    from repro_torch.core.plan import plan_network
+    from repro_torch.serve.csnn_engine import CSNNEngine, CSNNServeConfig
+    from repro_torch.tune import TuneConfig, measurement_runs
+
+    config = TuneConfig(device=str(dev))
+
+    def tune(path, mode="measured", **knobs):
+        t0, n0 = time.perf_counter(), measurement_runs()
+        plan = plan_network(cfg, **knobs, tune=mode, tune_config=config,
+                            cache_path=path)
+        return plan, time.perf_counter() - t0, measurement_runs() - n0
+
+    first = tmp / "tune_full.json"
+    tuned, secs, runs = tune(first, **TUNE_KNOBS)
+    entry = tune_entry(first)
+    print_tune("csnn_paper.FULL serve knobs, B=8", entry, secs, runs)
+    print(f"tuned plan:\n{tuned}")
+    spikes = encode_input(imgs.to(dev), cfg)
+    name = "tuned plan"
+    got = counted(name, lambda: forward(params, spikes, cfg, tuned),
+                  launches, exact_launches(tuned, cfg.t_steps))
+    hold_same("csnn_paper.FULL tuned plan vs serve plan (card)", got,
+              serve_run)
+    if not torch.equal(got[0], serve_run[0]):
+        fail("tuned plan: logits differ from the serve plan's card run")
+    cached, secs, runs = tune(first, "cached", **TUNE_KNOBS)
+    if runs or cached != tuned:
+        fail(f"tune='cached' made {runs} measurement runs or rebuilt "
+             f"another plan")
+    print(f"tune cached: 0 measurement runs, the same plan, in {secs:.3f} s")
+    second = tmp / "tune_full_again.json"
+    _, secs, runs = tune(second, **TUNE_KNOBS)
+    again = tune_entry(second)
+    print(f"tune again: {runs} measurement runs in {secs:.2f} s; winners "
+          f"{'match' if winners_key(again) == winners_key(entry) else 'differ'}"
+          f": {winners_key(again)} vs {winners_key(entry)}")
+    print_tune("csnn_paper.FULL serve knobs, second run", again, secs, runs)
+
+    # the engine plans with its own knobs (batch_tile = max_batch): warm
+    # that key, then the engine's cached tune must measure nothing
+    engine_cache = tmp / "tune_engine.json"
+    _, secs, runs = tune(engine_cache, batch_tile=B)
+    print_tune("csnn_paper.FULL engine knobs (batch_tile 8)",
+               tune_entry(engine_cache), secs, runs)
+    n0 = measurement_runs()
+    engine = CSNNEngine(params, cfg, None, CSNNServeConfig(
+        max_batch=B, continuous=True, slots=B, t_chunk=1), tune="cached",
+        cache_path=engine_cache)
+    if measurement_runs() != n0:
+        fail("CSNNEngine(tune='cached') measured on a warm cache")
+    engine.warmup()
+    buckets = record_buckets(engine)
+    name = "engine, continuous, tuned"
+    logits = counted(name, lambda: no_sync(lambda: serve_all(
+        engine, list(imgs))), launches,
+        lambda: exact_launches(engine.plan, 1, buckets=buckets))
+    for what, plan in (("its plan", engine.plan), ("the tuned plan", tuned)):
+        want = snn_apply_batched(params, spikes, cfg, plan,
+                                 collect_stats=False).cpu()
+        if not torch.equal(logits, want):
+            fail(f"{name}: logits differ from snn_apply_batched of {what}")
+    print(f"csnn_paper.FULL {name}: plan {[lp.resolve_variant() for lp in engine.plan.layers]}, "
+          f"buckets {buckets}; every request == snn_apply_batched of its "
+          f"plan and of the tuned plan (torch.equal)")
+    return tuned
+
+
+def tuned_ingest(dev, tmp) -> None:
+    """Phase 4, the tuner's streamed-finalization stage: ``ingest=True``
+    plans of FULL and SMOKE with 2 input channels (784 and 144 cells, on
+    either side of JAX's 256-cell crossover), each stage-3 time
+    ("ranks", "sort") and winner printed; each tuned streamed forward of
+    ``dvs_moving_edges`` traces held against the CPU plain path."""
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.aeq import StreamState
+    from repro_torch.core.plan import plan_network
+    from repro_torch.tune import TuneConfig, measurement_runs
+
+    knobs = dict(capacity=256, channel_block=8, batch_tile=B,
+                 event_par=None, ingest=True)
+    for cname, cfg in (("FULL", csnn_paper.FULL),
+                       ("SMOKE", csnn_paper.SMOKE)):
+        scfg, sparams, _, banks, _ = stream_case(dev, cfg, B)
+        path = tmp / f"tune_ingest_{cname}.json"
+        t0, n0 = time.perf_counter(), measurement_runs()
+        plan = plan_network(scfg, **knobs, tune="measured",
+                            tune_config=TuneConfig(device=str(dev)),
+                            cache_path=path)
+        secs, runs = time.perf_counter() - t0, measurement_runs() - n0
+        entry = tune_entry(path)
+        h, w = scfg.input_hw
+        fin = entry["measured_us"]
+        print(f"tune ingest csnn_paper.{cname} 2-polarity ({h}x{w} = "
+              f"{h * w} cells; JAX's default sorts at <= 256): ranks "
+              f"{fin['stream_finalize/ranks']} us, sort "
+              f"{fin['stream_finalize/sort']} us -> "
+              f"{plan.layers[0].stream_finalize!r} (default "
+              f"{plan_network(scfg, **knobs).layers[0].resolve_stream_finalize()!r})")
+        print_tune(f"csnn_paper.{cname} ingest", entry, secs, runs)
+        hold(f"csnn_paper.{cname} 2-polarity tuned streamed forward",
+             forward(sparams, StreamState(banks), scfg, plan),
+             forward(to_cpu(sparams), StreamState(banks.cpu()), scfg, plan))
+
+
+def conv_bound(vm, slab_list) -> tuple[float, str]:
+    """Least ms per launch of queue conv launches on the f32 tile ``vm``
+    over ``slab_list`` [(coords, valid, kernel), ...]: each launch's bytes
+    and adds (``crosscheck.conv_launch_cost``, the tuner's roofline) over
+    the card's peaks, and which of the two bounds it."""
+    from repro_torch.tune.crosscheck import conv_launch_cost, roofline_seconds
+    nbytes = nops = 0
+    for c, v, k in slab_list:
+        b, a = conv_launch_cost(
+            tile_elems=vm.numel(), vm_bytes=4,
+            event_bytes=c.numel() * 4 + v.numel(), kernel_elems=k.numel(),
+            kept=int(v.sum()), taps=k.shape[-3:].numel())
+        nbytes, nops = nbytes + b, nops + a
+    secs, by = roofline_seconds(nbytes, nops)
+    return secs * 1e3 / len(slab_list), by
 
 
 def timing(dev, cfg, params, imgs, plans, card):
@@ -1200,17 +1365,6 @@ def timing(dev, cfg, params, imgs, plans, card):
         v = qs.valid.permute(0, 2, 1, 3).contiguous()
         return [(c[t], v[t], kern) for t in range(t_steps)]
 
-    def conv_bound(slab_list):
-        """Least time of the same launches: bytes (tile in and out, queue,
-        kernel) over the HBM rate vs this data's adds over the f32 rate."""
-        nbytes = nops = 0
-        for c, v, k in slab_list:
-            nbytes += 2 * vm.numel() * 4 + c.numel() * 4 + v.numel() + k.numel() * 4
-            nops += int(v.sum()) * k.shape[-3:].numel()
-        tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
-        return (max(tb, to) * 1e3 / len(slab_list),
-                "bytes" if tb >= to else "operations")
-
     def loop(fn, slab_list):
         def run():
             for c, v, k in slab_list:
@@ -1247,8 +1401,8 @@ def timing(dev, cfg, params, imgs, plans, card):
         dense.append((d, weight, None))
     t_lib32 = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
         d, k, padding=lp1.geometry.halo), dense)) / len(dense)
-    b_seq, by_seq = conv_bound(seq_slabs)
-    b_int, by_int = conv_bound(int_slabs)
+    b_seq, by_seq = conv_bound(vm, seq_slabs)
+    b_int, by_int = conv_bound(vm, int_slabs)
 
     def forward_fn(plan):
         def run():
@@ -1256,27 +1410,34 @@ def timing(dev, cfg, params, imgs, plans, card):
                               plan, collect_stats=False)
         return run
 
-    def samples_per_s(plan, iters=5):
-        run = forward_fn(plan)
-        run()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
+    def samples_per_s(names, rounds=3, iters=5):
+        """B / the median forward time of each plan, the plans timed in
+        turns (``rounds`` x ``iters`` forwards each), so drift between
+        them spreads over all."""
+        runs = {n: forward_fn(plans[n]) for n in names}
+        ts = {n: [] for n in names}
+        for run in runs.values():
             run()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return B / statistics.median(ts)
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            for n, run in runs.items():
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    ts[n].append(time.perf_counter() - t0)
+        return [B / statistics.median(ts[n]) for n in names]
 
-    sps_int, sps_seq = samples_per_s(serve_plan), samples_per_s(seq_plan)
-    sps_fused = samples_per_s(plans["fused-handoff"])
-    sps_banked = samples_per_s(plans["banked-cuda"])
+    sps_int, sps_seq, sps_fused, sps_banked, sps_tuned = samples_per_s(
+        BATCHED_PATHS + ("tuned plan",))
     device_profile(forward_fn(serve_plan), "serve plan forward", B / sps_int)
     device_profile(forward_fn(seq_plan), "event_par=1 forward", B / sps_seq)
     device_profile(forward_fn(plans["fused-handoff"]), "fused-handoff forward",
                    B / sps_fused)
     device_profile(forward_fn(plans["banked-cuda"]), "banked-cuda forward",
                    B / sps_banked)
+    device_profile(forward_fn(plans["tuned plan"]), "tuned plan forward",
+                   B / sps_tuned)
     fused = timing_fused(dev, cfg, params, spikes, plans["fused-handoff"],
                          card)
     tag = f"[{card}]"
@@ -1292,7 +1453,8 @@ def timing(dev, cfg, params, imgs, plans, card):
     print(f"timing end-to-end csnn_paper.FULL B={B}: serve plan "
           f"{sps_int:.1f} samples/s, event_par=1 {sps_seq:.1f} samples/s, "
           f"fused-handoff {sps_fused:.1f} samples/s, banked-cuda "
-          f"{sps_banked:.1f} samples/s {tag}")
+          f"{sps_banked:.1f} samples/s, tuned plan {sps_tuned:.1f} "
+          f"samples/s {tag}")
     src = "src/repro_torch/kernels/csrc/"
     ref = "src/repro/kernels/"
     return [
@@ -1394,6 +1556,7 @@ def threshold_launch(dev, q, side, c, pool):
     from repro_torch.kernels.threshold_pool.kernel import \
         threshold_pool_cuda_batched
     from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+    from repro_torch.tune.crosscheck import roofline_seconds
 
     g = torch.Generator().manual_seed(3)
     vm = torch.randn((q, side + 2, side + 2, c), generator=g).to(dev)
@@ -1417,7 +1580,7 @@ def threshold_launch(dev, q, side, c, pool):
     cells = q * side * side * c
     nbytes = cells * (2 * 4 + 2) + c * 4 + (0 if pooled is None
                                             else pooled.numel())
-    bound = max(nbytes / PEAK_BYTES, 3 * cells / PEAK_F32) * 1e3
+    bound = roofline_seconds(nbytes, 3 * cells)[0] * 1e3
     return launch, plain, bound
 
 
@@ -1569,6 +1732,7 @@ def time_emit(dev, cfg, bias, carry, lp, nxt, label, tag) -> dict:
     from repro_torch.kernels.threshold_pool.kernel import \
         threshold_pool_cuda_emit
     from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+    from repro_torch.tune.crosscheck import roofline_seconds
 
     cb = lp.channel_block
     vm = carry.vm[..., :cb].contiguous()
@@ -1596,8 +1760,8 @@ def time_emit(dev, cfg, bias, carry, lp, nxt, label, tag) -> dict:
     # bias add, compare, latch OR per neuron; scan add and rank compare
     # per emitted cell
     nops = 3 * cells + 2 * outs[1 if lp.pool else 0].numel()
-    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
-    bound, by = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    bound, by = roofline_seconds(nbytes, nops)
+    bound *= 1e3
     print(f"timing threshold_pool_emit ({label}, B={B}, {h}x{w}x{cb}, pool "
           f"{lp.pool}, capacity {nxt.capacity}, f32): device {t:.5f} "
           f"ms/launch, host-bound {h_t:.5f}, plain {p_t:.4f}, bound "
@@ -1616,6 +1780,7 @@ def time_banked(dev, weight, lp, slabs, label, tag) -> dict:
     from repro_torch.core.event_conv import tap_matrix
     from repro_torch.kernels.event_conv.kernel import event_conv_cuda_banked
     from repro_torch.kernels.event_conv.ref import event_conv_ref_banked
+    from repro_torch.tune.crosscheck import roofline_seconds
 
     cb, geom = lp.channel_block, lp.geometry
     hp, wp, _ = lp.vm_tile
@@ -1643,8 +1808,8 @@ def time_banked(dev, weight, lp, slabs, label, tag) -> dict:
               + sum(m.numel() for m in slabs) / len(slabs))
     nops = (sum(int(m.sum()) for m in slabs) / len(slabs) * geom.n_banks
             * cb)
-    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
-    bound, by = max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+    bound, by = roofline_seconds(nbytes, nops)
+    bound *= 1e3
     print(f"timing event_conv_banked ({label}, tile {hp}x{wp}x{cb}, "
           f"{lp.c_in} c_in per launch, capacity {lp.capacity}, f32): device "
           f"{t:.5f} ms/launch, host-bound {h_t:.5f}, plain {p_t:.4f}, bound "
@@ -1695,17 +1860,6 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
                 fn(c, v, k)
         return run
 
-    def bound(slab_list):
-        """Least time of the same launches: bytes (tile in and out, queue,
-        kernel) over the HBM rate vs this data's adds over the f32 rate."""
-        nbytes = nops = 0
-        for c, v, k in slab_list:
-            nbytes += 2 * vm.numel() * 4 + c.numel() * 4 + v.numel() + k.numel() * 4
-            nops += int(v.sum()) * k.shape[-3:].numel()
-        tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
-        return (max(tb, to) * 1e3 / len(slab_list),
-                "bytes" if tb >= to else "operations")
-
     seq_slabs, int_slabs = slabs(q_seq), slabs(q_int)
 
     def seq_k(c, v, k):
@@ -1734,8 +1888,8 @@ def timing_single(dev, cfg, params, plans, spikes, card) -> list:
         dense.append((d, weight, None))
     t_lib32 = graph_time_ms(loop(lambda d, k, _: torch.nn.functional.conv2d(
         d, k, padding=lp1.geometry.halo), dense)) / len(dense)
-    b_seq, by_seq = bound(seq_slabs)
-    b_int, by_int = bound(int_slabs)
+    b_seq, by_seq = conv_bound(vm, seq_slabs)
+    b_int, by_int = conv_bound(vm, int_slabs)
 
     def samples_per_s(plan, iters=3):
         def run():
@@ -1811,28 +1965,41 @@ def main() -> int:
                 print(f"ptxas {src}: {line.strip()}")
     max_err = check_kernels(dev)                         # phase 3
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
-    launches, params, imgs, plans = main_path(           # phases 4-5
+    launches, params, imgs, plans, serve_run = main_path(  # phases 4-5
         dev, csnn_paper.FULL, csnn_wide.FULL)
     sspikes = single_path(dev, csnn_paper.FULL, params, plans, launches)
     serve_plan = plans["serve plan (interlaced)"]
     stream, splans = engine_path(dev, csnn_paper.FULL, params, serve_plan,
                                  launches)
-    print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        plans["tuned plan"] = tuned_path(dev, csnn_paper.FULL, params, imgs,
+                                         serve_run, launches, Path(tmp))
+        tuned_ingest(dev, Path(tmp))
+        print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
-    env = dict(os.environ, PYTHONPATH=str(SRC))          # phase 6
-    for flags, line in (([], "mode=batched"), (["--engine"], "engine: "),
-                        (["--engine", "--continuous", "--t-chunk", "1"],
-                         "engine: chunks="),
-                        (["--stream"], "stream: events=")):
-        serve = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             "csnn-paper", "--requests", "8", *flags],
-            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
-        print(serve.stdout, end="")
-        if (serve.returncode != 0 or serve.stdout.count("req ") != 8
-                or line not in serve.stdout):
-            fail(f"serve {' '.join(flags)} exited {serve.returncode}:\n"
-                 f"{serve.stderr}")
+        env = dict(os.environ, PYTHONPATH=str(SRC),      # phase 6
+                   REPRO_TORCH_PLAN_CACHE=str(Path(tmp) / "serve_cache.json"))
+        for flags, line in (([], "mode=batched"), (["--engine"], "engine: "),
+                            (["--engine", "--continuous", "--t-chunk", "1"],
+                             "engine: chunks="),
+                            (["--stream"], "stream: events="),
+                            (["--tune", "measured"],
+                             "tune: mode=measured plan derived in"),
+                            (["--tune", "cached"],
+                             "tune: mode=cached plan derived in")):
+            serve = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                 "csnn-paper", "--requests", "8", *flags],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=600)
+            print(serve.stdout, end="")
+            if (serve.returncode != 0 or serve.stdout.count("req ") != 8
+                    or line not in serve.stdout):
+                fail(f"serve {' '.join(flags)} exited {serve.returncode}:\n"
+                     f"{serve.stderr}")
+        if len(json.loads((Path(tmp) / "serve_cache.json").read_text())[
+                "entries"]) != 1:
+            fail("serve --tune measured/cached: want one cache entry")
     quick = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quickstart"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)

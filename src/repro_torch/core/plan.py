@@ -20,6 +20,10 @@ field (tests/test_torch_plan.py).
 the input layer (``ingest_capacity``, ``ingest_depth``) and
 ``stream_finalize`` picks how streamed input queues are finalized:
 JAX's fields and rules, unchanged.
+
+``plan_network(tune="measured"|"cached")`` hands the same knobs to the
+measured tuner (``repro_torch.tune``), which times the candidate
+schedules on the device and plans with the winners.
 """
 from __future__ import annotations
 
@@ -61,16 +65,11 @@ STREAM_FINALIZE = ("ranks", "sort")
 
 # The fmap-size crossover of that default: at or below this many cells
 # the sort finalizes.  JAX's value, kept so the two plans agree field by
-# field; it was measured on another device, not on the card (ROADMAP.md
-# Queue 1, 'Measured tuner and plan cache', re-derives it there).
+# field; it was measured on another device.  The measured tuner ranks
+# both finalizations on the device instead (``tune=``).
 _FINALIZE_SORT_MAX_HW = 256
 
-# What the port does not run yet, and where ROADMAP.md lists it.
-NOT_PORTED = {
-    "tune": "the measured tuner and plan cache are not ported yet "
-            "(ROADMAP.md Queue 1, 'Measured tuner and plan cache'); use "
-            "tune='analytic'",
-}
+TUNE_MODES = ("analytic", "measured", "cached")
 
 
 def pad_capacity(capacity: int) -> int:
@@ -353,6 +352,8 @@ def plan_network(
     stream_finalize: Optional[str] = None,
     fc_capacity: Optional[int] = None,
     tune: str = "analytic",
+    tune_config=None,
+    cache_path=None,
 ) -> NetworkPlan:
     """Derive a :class:`NetworkPlan` from a ``CSNNConfig`` (analytic
     sizing).  ``capacity``/``channel_block``/``event_par``/``block_e``/
@@ -368,10 +369,32 @@ def plan_network(
     bins (the chunk length) and ``ingest_capacity`` the raw-event buffer
     per admission, by default one input-queue depth of events per (bin,
     channel), padded to a multiple of 64.  ``stream_finalize`` pins the
-    input layer's streamed-queue finalization.  The measured tuner is
-    not ported yet."""
+    input layer's streamed-queue finalization.
+
+    ``tune`` selects how the schedule knobs are derived: ``"analytic"``
+    (the sizing model above); ``"measured"`` times candidate (block_e,
+    event_par, variant, capacity sharing, t_chunk, stream_finalize)
+    settings on ``tune_config.device`` (a ``repro_torch.tune.TuneConfig``;
+    CUDA by default) and plans with the winners, persisting them in the
+    plan cache; ``"cached"`` loads winners from the cache (``cache_path``,
+    else ``REPRO_TORCH_PLAN_CACHE``, else the per-user default) and
+    measures only on a miss.  Every candidate gives the same results;
+    only the time changes."""
+    if tune not in TUNE_MODES:
+        raise ValueError(f"tune={tune!r} must be one of {TUNE_MODES}")
     if tune != "analytic":
-        raise NotImplementedError(f"tune={tune!r}: {NOT_PORTED['tune']}")
+        from repro_torch.tune import tune_network
+        base = dict(capacity=capacity, channel_block=channel_block,
+                    block_e=block_e, sat_bits=sat_bits, stats=stats,
+                    percentile=percentile, margin=margin,
+                    batch_tile=batch_tile, per_layer=per_layer,
+                    smem_budget=smem_budget, t_chunk=t_chunk,
+                    event_par=event_par, ingest=ingest,
+                    ingest_capacity=ingest_capacity, variant=variant,
+                    stream_finalize=stream_finalize,
+                    fc_capacity=fc_capacity)
+        return tune_network(cfg, mode=tune, base=base, config=tune_config,
+                            cache_path=cache_path)
     from .csnn import ConvSpec, conv_out_hw
     conv_specs = [(i, s) for i, s in enumerate(cfg.layers)
                   if isinstance(s, ConvSpec)]

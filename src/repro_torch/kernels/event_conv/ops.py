@@ -88,6 +88,29 @@ def autotune_event_par(capacity: int, vm_tile: tuple[int, ...] = (), *,
     return par
 
 
+def candidate_block_es(capacity: int, vm_tile: tuple[int, ...] = (), *,
+                       vm_bytes: int = 4,
+                       smem_budget: int = SMEM_PER_BLOCK) -> list[int]:
+    """The measured tuner's ``block_e`` candidates: the analytic pick
+    (:func:`autotune_block_e`) and its neighbours one octave down and up
+    to the whole queue, snapped to divisors of ``capacity`` under the same
+    ceiling (JAX's set against one block's shared memory).  Sorted,
+    deduplicated, never empty.  The gathers ignore ``block_e``; it reaches
+    only ``LayerStats.event_block``."""
+    prior = autotune_block_e(capacity, vm_tile, vm_bytes=vm_bytes,
+                             smem_budget=smem_budget)
+    if capacity <= 0:
+        return [prior]
+    resident = 2 * math.prod(vm_tile) * vm_bytes if vm_tile else 0
+    spare = max(smem_budget - resident, 2 * EVENT_BYTES)
+    cap = max(spare // (2 * EVENT_BYTES), 1)
+    cands = {prior}
+    for req in (prior // 2, prior * 2, prior * 4, capacity):
+        if req >= 1:
+            cands.add(snap_divisor(capacity, min(req, cap)))
+    return sorted(cands)
+
+
 def validate_event_shapes(coords: torch.Tensor, valid: torch.Tensor,
                           vm_padded: torch.Tensor | None = None, *,
                           block_e: int | None = None,

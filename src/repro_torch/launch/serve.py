@@ -21,13 +21,20 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
       --requests 8 --stream
 
+  # the measured tuner: time candidate schedules on the device, plan with
+  # the winners and cache them (REPRO_TORCH_PLAN_CACHE overrides
+  # ~/.cache/repro_torch/plan_cache.json); --tune cached loads them
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch csnn-paper \
+      --requests 8 --tune measured
+
 Serves random image requests (weights from a seed) under the analytic
-plan and prints one ``req N: class K`` line per request and a throughput
-line.  Without ``--engine`` one batch goes through ``snn_apply_batched``;
-with it, the requests are submitted one by one to ``CSNNEngine``.  The
-first call (``warmup`` for the engine) is timed apart: on the GPU it
-includes building the kernels.  ``--verbose`` prints the plan and, for
-image requests, the per-layer event counts.
+plan, or the tuned one with ``--tune``, and prints one ``req N: class K``
+line per request and a throughput line.  Without ``--engine`` one batch
+goes through ``snn_apply_batched``; with it, the requests are submitted
+one by one to ``CSNNEngine``.  The first call (``warmup`` for the
+engine) is timed apart: on the GPU it includes building the kernels.
+``--verbose`` prints the plan and, for image requests, the per-layer
+event counts.
 """
 import argparse
 import statistics
@@ -72,10 +79,22 @@ def serve_csnn(args) -> int:
         reqs = list(imgs)
     event_par = (None if args.event_par < 0
                  else args.event_par if args.event_par else 1)
+    # tuning happens here, before any request is admitted: measuring
+    # candidates (--tune measured) or loading the plan cache (--tune
+    # cached) is warmup work, never request-path work
+    tune_config = None
+    if args.tune != "analytic":
+        from repro_torch.tune import TuneConfig
+        tune_config = TuneConfig(device=str(device))
+    t0 = time.perf_counter()
     plan = plan_network(cfg, capacity=args.capacity,
                         channel_block=args.channel_block,
                         batch_tile=args.batch_tile, event_par=event_par,
-                        ingest=args.stream)
+                        ingest=args.stream, tune=args.tune,
+                        tune_config=tune_config)
+    if args.tune != "analytic":
+        print(f"tune: mode={args.tune} plan derived in "
+              f"{time.perf_counter() - t0:.2f} s")
     if args.verbose:
         print(plan)
 
@@ -171,6 +190,13 @@ def main(argv=None):
                     help="steady-state timing iterations")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain path)")
+    ap.add_argument("--tune", default="analytic",
+                    choices=("analytic", "measured", "cached"),
+                    help="plan derivation: the sizing model (analytic), "
+                         "measured winners on --device persisted to the "
+                         "plan cache (measured), or a cache load that "
+                         "measures on a miss (cached; "
+                         "REPRO_TORCH_PLAN_CACHE overrides the path)")
     ap.add_argument("--engine", action="store_true",
                     help="route requests through the async micro-batching "
                          "CSNNEngine")

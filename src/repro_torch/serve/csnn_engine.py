@@ -117,21 +117,34 @@ class CSNNEngine:
 
     or serve a whole request list with ``run_requests``.  Requests are
     host data (numpy arrays or CPU tensors); logits come back as CPU
-    tensors.  ``tune`` other than ``"analytic"`` raises (not ported), and
-    an explicit ``plan`` wins over it.
+    tensors.  Without a ``plan``, the engine plans for ``cfg`` at a batch
+    tile of ``max_batch``: ``tune="measured"`` or ``"cached"`` runs the
+    measured tuner here, at construction and never on the request path,
+    on the parameters' device, with the plan cache at ``cache_path`` (or
+    the tuner's default location).  An explicit ``plan`` wins over
+    ``tune``.
     """
 
     def __init__(self, params: dict, cfg: CSNNConfig,
                  plan: Optional[NetworkPlan] = None,
                  serve_cfg: Optional[CSNNServeConfig] = None, *,
-                 tune: str = "analytic"):
+                 tune: str = "analytic", cache_path=None):
         # a fresh default per engine: a shared default instance would
         # alias the mutable serving knobs across engines
         if serve_cfg is None:
             serve_cfg = CSNNServeConfig()
         self.cfg = cfg
-        self.plan = plan if plan is not None else plan_network(
-            cfg, batch_tile=serve_cfg.max_batch, tune=tune)
+        first = next(iter(params.values()))
+        self.device = next(iter(first.values())).device
+        if plan is None:
+            tune_config = None
+            if tune != "analytic":
+                from repro_torch.tune import TuneConfig
+                tune_config = TuneConfig(device=str(self.device))
+            plan = plan_network(cfg, batch_tile=serve_cfg.max_batch,
+                                tune=tune, tune_config=tune_config,
+                                cache_path=cache_path)
+        self.plan = plan
         self.serve_cfg = serve_cfg
         if serve_cfg.stream and not serve_cfg.continuous:
             raise ValueError(
@@ -144,8 +157,6 @@ class CSNNEngine:
                 f"max_batch={serve_cfg.max_batch} must be a multiple of the "
                 f"plan's batch_tile={self.plan.batch_tile}")
         self._params = params
-        first = next(iter(params.values()))
-        self.device = next(iter(first.values())).device
         self._queue: Optional[asyncio.Queue] = None
         self._flusher: Optional[asyncio.Task] = None
         self._inflight: set = set()  # unresolved request futures

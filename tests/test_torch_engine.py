@@ -111,7 +111,7 @@ def test_size_deadline_and_stop_flushes():
     assert engine.stats["flushes_deadline"] == 0
 
 
-def test_waves_warmup_and_misuse():
+def test_waves_warmup_and_misuse(tmp_path):
     _, _, plan, engine, imgs = _setup(n=4, max_batch=4)
     compile_s = engine.warmup()
     assert compile_s > 0.0 and engine.stats["compile_s"] == compile_s
@@ -123,8 +123,22 @@ def test_waves_warmup_and_misuse():
         engine.submit_nowait(imgs[0])
     with pytest.raises(ValueError, match="batch_tile"):
         CSNNEngine(engine._params, CFG, plan, CSNNServeConfig(max_batch=6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CSNNEngine(engine._params, CFG, tune="measured")
+    # tune= plans at construction on the parameters' device (the CPU)
+    from repro_torch.tune import measurement_runs
+    n0 = measurement_runs()
+    tuned = CSNNEngine(engine._params, CFG, tune="measured",
+                       cache_path=tmp_path / "plan_cache.json")
+    assert measurement_runs() > n0
+    assert tuned.plan.batch_tile == tuned.serve_cfg.max_batch
+    analytic = tplan(CFG, batch_tile=tuned.serve_cfg.max_batch)
+    assert torch.equal(tuned.run_requests(list(imgs), timeout=TIMEOUT_S),
+                       _direct(engine._params, analytic, imgs))
+    n1 = measurement_runs()
+    cached = CSNNEngine(engine._params, CFG, tune="cached",
+                        cache_path=tmp_path / "plan_cache.json")
+    assert measurement_runs() == n1 and cached.plan == tuned.plan
+    with pytest.raises(ValueError, match="must be one of"):
+        CSNNEngine(engine._params, CFG, tune="psychic")
 
 
 def test_default_configs_are_not_shared_and_empty_requests():

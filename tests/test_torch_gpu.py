@@ -420,3 +420,38 @@ def test_engine_modes_equal_snn_apply_batched_on_card(cuda):
             max_batch=4, continuous=True, stream=True, t_chunk=1))
         engine.warmup()
         assert torch.equal(engine.run_requests(traces, timeout=120.0), want)
+
+
+@pytest.mark.gpu
+def test_measured_tune_on_card_equals_analytic_plan(cuda, tmp_path):
+    """A measured tune of SMOKE on the card (the interlaced candidate
+    included), a cache hit that measures nothing, and the tuned forward
+    equal to the analytic plan's (stats and logits)."""
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.csnn import init_params, snn_apply_batched
+    from repro_torch.core.plan import plan_network
+    from repro_torch.tune import TuneConfig, measurement_runs
+
+    cfg = csnn_paper.SMOKE
+    knobs = dict(capacity=64, channel_block=4, batch_tile=4, event_par=None)
+    config = TuneConfig(device="cuda", warmup=1, iters=3)
+    path = tmp_path / "plan_cache.json"
+    n0 = measurement_runs()
+    tuned = plan_network(cfg, **knobs, tune="measured", tune_config=config,
+                         cache_path=path)
+    assert measurement_runs() > n0
+    assert "interlaced-cuda" in path.read_text()
+    n1 = measurement_runs()
+    assert plan_network(cfg, **knobs, tune="cached", tune_config=config,
+                        cache_path=path) == tuned
+    assert measurement_runs() == n1
+    params = init_params(cfg, seed=0, device=cuda)
+    spikes = (torch.rand((4, cfg.t_steps, 12, 12, 1),
+                         generator=torch.Generator().manual_seed(2))
+              < 0.3).to(cuda)
+    la, sa = snn_apply_batched(params, spikes, cfg, plan_network(cfg, **knobs))
+    lt, st = snn_apply_batched(params, spikes, cfg, tuned)
+    assert torch.equal(la, lt)
+    for a, b in zip(sa, st):
+        assert torch.equal(a.in_spike_counts, b.in_spike_counts)
+        assert torch.equal(a.out_spike_counts, b.out_spike_counts)

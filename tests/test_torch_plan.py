@@ -114,7 +114,7 @@ def test_speed_rules_equal_jax_formulas_at_same_budget(budget):
                         == jops.snap_block_e_for_par(depth, be, par))
 
 
-def test_resolve_variant_and_unported_paths():
+def test_resolve_variant_and_unported_paths(tmp_path):
     tp = tplan.plan_network(tpaper.SMOKE, event_par=[1, 4])
     assert [lp.resolve_variant() for lp in tp.layers] == [
         "sequential", "interlaced-cuda"]
@@ -138,8 +138,16 @@ def test_resolve_variant_and_unported_paths():
     with pytest.raises(ValueError, match="halo-padded vm_tile"):
         dataclasses.replace(fused, layers=(fused.layers[0], bad)).validate(
             tpaper.SMOKE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan.plan_network(tpaper.SMOKE, tune="measured")
+    # the measured tuner (tests/test_torch_tune.py) plans the same layers
+    from repro_torch.tune import TuneConfig
+    tuned = tplan.plan_network(
+        tpaper.SMOKE, capacity=32, channel_block=4, batch_tile=2,
+        tune="measured", tune_config=TuneConfig(device="cpu", warmup=0,
+                                                iters=1),
+        cache_path=tmp_path / "plan_cache.json")
+    assert tuned.validate(tpaper.SMOKE) is tuned
+    with pytest.raises(ValueError, match="must be one of"):
+        tplan.plan_network(tpaper.SMOKE, tune="psychic")
     with pytest.raises(ValueError, match="requires event_par > 1"):
         tplan.plan_network(tpaper.SMOKE, variant="interlaced-cuda")
     with pytest.raises(ValueError, match="must be one of"):

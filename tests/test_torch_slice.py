@@ -142,11 +142,12 @@ def test_init_params_shapes_match_jax_and_seed():
     assert all(torch.equal(a[k]["w"], b[k]["w"]) for k in a)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """The pinned fused/banked variants run (and equal the default plan);
     fc_capacity runs, and at a covering capacity equals the dense head;
-    the measured tuner still raises, and so does a chunk that is neither
-    spikes nor a StreamState."""
+    the measured tuner's plan gives the same logits, an unknown tune mode
+    raises, and so does a chunk that is neither spikes nor a
+    StreamState."""
     cfg = tpaper.SMOKE
     params = tc.init_params(cfg, device="cpu")
     spikes = torch.rand((1, 4, 12, 12, 1),
@@ -158,8 +159,14 @@ def test_unported_options_raise():
                                    tplan(cfg, variant=variant),
                                    collect_stats=False)
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tplan(cfg, tune="measured")
+    from repro_torch.tune import TuneConfig
+    tuned = tplan(cfg, tune="measured", cache_path=tmp_path / "pc.json",
+                  tune_config=TuneConfig(device="cpu", warmup=0, iters=1,
+                                         batch=1))
+    assert torch.equal(tc.snn_apply_batched(params, spikes, cfg, tuned,
+                                            collect_stats=False), want)
+    with pytest.raises(ValueError, match="must be one of"):
+        tplan(cfg, tune="psychic")
     # D = 4*4*8 head inputs: a queue of D covers every nonzero drive entry
     got = tc.snn_apply_batched(params, spikes, cfg, tplan(cfg, fc_capacity=128),
                                collect_stats=False)
