@@ -35,6 +35,15 @@ Phases (any failure exits non-zero before the result line):
    unit the same way, at the serve plan's event_par and queue depth, and
    with 4 input channels at event_par 8, 4, 2, 16 and 6, unpadded queues
    (mixed groups) and repeated coordinates;
+3b. the auditor (``repro_torch.analysis``): the plan contracts, the hazard
+   proofs, the kernel audit with ``device="cuda"`` (every wrapper's
+   operands in red zones; each of the seven kernels must count a launch),
+   the lint and the self-test, one line per pass with its obligations per
+   rule and its time; then ``python -m repro_torch.analysis --only kernels
+   --device cuda`` under ``compute-sanitizer --tool memcheck`` with
+   ``PYTORCH_NO_CUDA_MEMORY_CACHING=1``, its ``ERROR SUMMARY`` line and
+   wall time (where the sanitizer does not support the card, its refusal
+   is printed and the red-zone audit stands in);
 4. the main paths: ``snn_apply_batched``'s steps (``init_state``,
    ``snn_step_chunk``, ``snn_readout``) on ``csnn_paper.FULL`` with B=8
    under the serve plan (interlaced), with ``event_par=1``, with every
@@ -659,6 +668,74 @@ def check_interlaced_gather(g, dev, same) -> None:
         check(f"repeated coords ep={ep}",
               rand_tile(g, (2, 12, 12, 8), torch.float32, dev), coords,
               valid, rand_kernel(g, (3, 3, 3, 8), torch.float32, dev), ep)
+
+
+# -------------------------------------------------------------- phase 3b
+SANITIZER_TIMEOUT_S = 600
+
+
+def audit_phase(card: str) -> None:
+    """Phase 3b: the port's auditor (``repro_torch.analysis``) in process,
+    the kernel audit launching every CUDA kernel under red zones; then the
+    kernel pass again under ``compute-sanitizer --tool memcheck`` in a
+    subprocess (``PYTORCH_NO_CUDA_MEMORY_CACHING=1``, so an overrun cannot
+    land unseen inside another block of PyTorch's caching allocator).
+
+    Fails on any finding, on a kernel the audit never launched, on a
+    ``compute-sanitizer`` missing beside ``nvcc`` or on memcheck errors.
+    Where the sanitizer reports that it does not support the card (it
+    cannot attach through some container runtimes), the phase prints
+    that line and the red-zone audit above stands in for memcheck.
+    """
+    from repro_torch.analysis.contracts import run_contracts
+    from repro_torch.analysis.hazards import run_hazards
+    from repro_torch.analysis.kernel_audit import KERNELS, run_kernel_audit
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.analysis.selftest import run_selftest
+    from repro_torch.kernels import runtime
+
+    for name, run in (("contracts", run_contracts), ("hazards", run_hazards),
+                      ("kernels", lambda: run_kernel_audit(device="cuda")),
+                      ("lint", run_lint), ("selftest", run_selftest)):
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        rep = run()
+        seconds = time.perf_counter() - t0
+        rules = ", ".join(f"{r} {n}" for r, n in sorted(rep.checked.items()))
+        print(f"audit {name}: {len(rep.findings)} finding(s) in "
+              f"{seconds:.2f} s [{card}]: {rules}")
+        if not rep.ok:
+            fail(f"audit {name}:\n{rep.summary()}")
+        if name == "kernels":
+            print("audit kernels: launches " + ", ".join(
+                f"{k} {runtime.LAUNCHES[k]}" for k in KERNELS))
+            idle = [k for k in KERNELS if runtime.LAUNCHES[k] == 0]
+            if idle:
+                fail(f"audit kernels: no launch of {idle}")
+    sanitizer = Path(runtime._nvcc()).parent / "compute-sanitizer"
+    if not sanitizer.exists():
+        fail(f"compute-sanitizer not found beside nvcc ({sanitizer})")
+    cmd = [str(sanitizer), "--tool", "memcheck", "--leak-check", "no",
+           "--error-exitcode", "1", sys.executable, "-m",
+           "repro_torch.analysis", "--only", "kernels", "--device", "cuda"]
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=SANITIZER_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    summary = [ln.strip() for ln in out.splitlines() if "ERROR SUMMARY" in ln]
+    refused = [ln.strip() for ln in out.splitlines()
+               if "Device not supported" in ln]
+    print(f"memcheck: {summary[-1] if summary else 'no ERROR SUMMARY line'}, "
+          f"exit {proc.returncode}, {seconds:.1f} s wall [{card}]")
+    if refused:
+        print(f"memcheck: {refused[0]} -- compute-sanitizer cannot attach to "
+              f"this card here; the red-zone kernel audit above stands in")
+    elif (proc.returncode != 0 or not summary
+          or "ERROR SUMMARY: 0 errors" not in summary[-1]):
+        fail(f"memcheck of the kernel audit:\n{out[-4000:]}")
 
 
 # --------------------------------------------------------------- phase 4
@@ -1644,7 +1721,11 @@ def compare_threshold(sources: list[str]) -> int:
         so = out / f"libthreshold_pool_{i}.so"
         subprocess.run([runtime._nvcc(), *runtime.NVCC_FLAGS, "-o", str(so),
                         src], check=True, capture_output=True, text=True)
+        # other builds of the threshold kernel, each timed through the
+        # same wrapper as this checkout's
+        # analysis: ignore[lint-kernel-launch-outside-kernels]
         libs[src] = ctypes.CDLL(str(so))
+    # analysis: ignore[lint-kernel-launch-outside-kernels]
     libs["this checkout"] = runtime.load("threshold_pool")
     for name, lib in libs.items():
         runtime._LIBS["threshold_pool"] = lib
@@ -1965,6 +2046,8 @@ def main() -> int:
                 print(f"ptxas {src}: {line.strip()}")
     max_err = check_kernels(dev)                         # phase 3
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    audit_phase(card)                                    # phase 3b
+    print(f"phase 3b done at {time.perf_counter() - t_start:.1f} s")
     launches, params, imgs, plans, serve_run = main_path(  # phases 4-5
         dev, csnn_paper.FULL, csnn_wide.FULL)
     sspikes = single_path(dev, csnn_paper.FULL, params, plans, launches)

@@ -20,7 +20,8 @@ from typing import Iterable
 class Finding:
     """One violated invariant.
 
-    tool:  which pass produced it (the port has ``contracts``).
+    tool:  which pass produced it (contracts | hazards | kernel_audit |
+           lint | selftest).
     rule:  stable kebab-case rule id (the id the ignore mechanism keys on).
     where: location — ``path.py:lineno`` for lint, ``plan[...]`` /
            ``kernel:<name>`` for the semantic passes.

@@ -255,6 +255,9 @@ def calibrate_capacity(spike_counts, *, percentile: float = 99.9,
     ``align`` (the analogue of sizing the FPGA's queue BRAM from a
     calibration run).  ``spike_counts``: any array or tensor of counts."""
     if isinstance(spike_counts, torch.Tensor):
+        # calibration reads counts on the host by design; a planned
+        # forward never calls it (plan_network only when plan is None)
+        # analysis: ignore[lint-host-sync-in-hot-path]
         spike_counts = spike_counts.detach().cpu().numpy()
     counts = np.asarray(spike_counts, dtype=np.float64).ravel()
     if counts.size == 0:

@@ -24,6 +24,8 @@ def mttfs_thresholds(t_steps: int, lo: float = 0.0, hi: float = 1.0,
         raise ValueError("m-TTFS input encoding needs at least 2 time steps")
     step = torch.tensor(hi - lo, dtype=torch.float32) / t_steps
     grid = lo + torch.arange(t_steps + 1, dtype=torch.float32) * step
+    # encode_input builds the grid on the host (device=None): no copy
+    # analysis: ignore[lint-host-sync-in-hot-path]
     return grid[1:-1].to(device)
 
 

@@ -41,6 +41,9 @@ SMEM_PER_BLOCK = 232448
 #: bounds of the gather kernel's packed slot
 _MAX_C_IN = 1024
 _MAX_SIDE = 2048
+#: the banked conv's largest pixel patch rows (``banked_patch`` in
+#: ``csrc/event_conv_banked.cu`` starts at 8 x 8 and only halves)
+_BANKED_PATCH_ROWS = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -128,6 +131,24 @@ def _check(vm_padded, coords, valid, kernel, out, event_par: int, *,
         raise ValueError("out must match vm in shape, dtype and device")
 
 
+def check_gather_limits(vm_padded, coords, valid, kernel) -> None:
+    """Raise unless the gather can address these (C_in, ...) operands: a
+    kept slot packs (input channel, window row, window column) into
+    10 + 11 + 11 bits, offsets are 32-bit, coords are read as int2.  The
+    launcher calls it before every launch, and the auditor
+    (``analysis.hazards``, ``oob-launch-bounds``) on the operand shapes
+    every plan hands the wrappers (meta tensors do)."""
+    c_in = coords.shape[0]
+    hp, wp = vm_padded.shape[-3:-1]
+    if (c_in > _MAX_C_IN or max(hp, wp) > _MAX_SIDE
+            or max(vm_padded.numel(), valid.numel(), kernel.numel()) >= 2**31):
+        raise ValueError(
+            f"{c_in} input channels' queues on {tuple(vm_padded.shape)} "
+            f"tiles: the conv kernel takes at most {_MAX_C_IN} input "
+            f"channels, {_MAX_SIDE} rows or columns and 2**31 elements per "
+            f"operand")
+
+
 def _with_c_in(coords, valid, kernel, *, single: bool):
     """A queue wrapper's operands with the leading input-channel axis;
     the forms without it are the ``C_in = 1`` case.  The shapes are
@@ -153,15 +174,7 @@ def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
     e = coords.shape[-2]
     kh, kw = kernel.shape[-3:-1]
     c_in = coords.shape[0]
-    # a kept slot packs (input channel, window row, window column) into
-    # 10 + 11 + 11 bits, offsets are 32-bit, coords are read as int2
-    if (c_in > _MAX_C_IN or max(hp, wp) > _MAX_SIDE
-            or max(vm_padded.numel(), valid.numel(), kernel.numel()) >= 2**31):
-        raise ValueError(
-            f"{c_in} input channels' queues on {tuple(vm_padded.shape)} "
-            f"tiles: the conv kernel takes at most {_MAX_C_IN} input "
-            f"channels, {_MAX_SIDE} rows or columns and 2**31 elements per "
-            f"operand")
+    check_gather_limits(vm_padded, coords, valid, kernel)
     if coords.data_ptr() % 8:
         raise ValueError("coords must be 8-byte aligned (int32 pairs)")
     if event_par > 1:
@@ -294,19 +307,26 @@ def event_conv_cuda_interlaced(vm_padded: torch.Tensor, coords: torch.Tensor,
                    single=True)
 
 
-def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
-                           taps: torch.Tensor, *, geometry: ConvGeometry,
-                           out: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Apply every input channel's events, given as padded bank occupancy,
-    to Q halo-padded tiles in one launch.
+def banked_min_smem_bytes(hbq: int, wbq: int, geometry: ConvGeometry) -> int:
+    """Shared memory the banked conv needs at the least for carriers of
+    (HB+2) x (WB+2) macro cells: two staging buffers of one input
+    channel's carrier span at the largest pixel patch (8 rows), their
+    mbarriers and the bank-offset table (``launch`` in
+    ``csrc/event_conv_banked.cu``, whose generic instance shrinks to two
+    stages before it refuses the launch)."""
+    kh = geometry.kh
+    nb = geometry.n_banks
+    rows = (_BANKED_PATCH_ROWS + kh - 2) // kh + 3
+    span = -(-((nb - 1) * hbq * wbq + rows * wbq + 32) // 16) * 16
+    return 2 * span + 16 * 2 + 4 * nb * nb
 
-    vm_padded (Q, Hp, Wp, C) float32/int16/int8; masks (C_in, Q, n_banks,
-    HB+2, WB+2) bool with HB, WB = ceil(Hp/kh), ceil(Wp/kw) — one time
-    step of a ``FusedHandoff`` carrier; taps (C_in, n_banks, n_banks, C)
-    in vm's dtype (``event_conv.tap_matrix`` per input channel).  Returns
-    the updated tiles (``out=vm_padded`` updates in place).
-    """
+
+def check_banked(vm_padded, masks, taps, geometry: ConvGeometry, out=None
+                 ) -> tuple[int, ...]:
+    """Validate the banked conv's operands (meta tensors do); returns
+    (q, hp, wp, c, c_in, HB+2, WB+2).  Raises where a carrier's span
+    would not stage in :data:`SMEM_PER_BLOCK`
+    (:func:`banked_min_smem_bytes`)."""
     if vm_padded.ndim != 4 or vm_padded.dtype not in runtime.DTYPE_CODES:
         raise ValueError(f"vm tiles must be (Q, Hp, Wp, C) float32/int16/"
                          f"int8, got {tuple(vm_padded.shape)} {vm_padded.dtype}")
@@ -327,6 +347,30 @@ def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
                             or out.dtype != vm_padded.dtype
                             or out.device != vm_padded.device):
         raise ValueError("out must match vm in shape, dtype and device")
+    smem = banked_min_smem_bytes(want[3], want[4], geometry)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"banked conv of {hp}x{wp} tiles under the {kh}x{kw} "
+                         f"geometry stages {smem} B of carrier span per CTA, "
+                         f"over the {SMEM_PER_BLOCK} B of one block")
+    return q, hp, wp, c, c_in, want[3], want[4]
+
+
+def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
+                           taps: torch.Tensor, *, geometry: ConvGeometry,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Apply every input channel's events, given as padded bank occupancy,
+    to Q halo-padded tiles in one launch.
+
+    vm_padded (Q, Hp, Wp, C) float32/int16/int8; masks (C_in, Q, n_banks,
+    HB+2, WB+2) bool with HB, WB = ceil(Hp/kh), ceil(Wp/kw) — one time
+    step of a ``FusedHandoff`` carrier; taps (C_in, n_banks, n_banks, C)
+    in vm's dtype (``event_conv.tap_matrix`` per input channel).  Returns
+    the updated tiles (``out=vm_padded`` updates in place).
+    """
+    q, hp, wp, c, c_in, hbq, wbq = check_banked(vm_padded, masks, taps,
+                                                geometry, out)
+    kh, kw = geometry.window
     if not runtime.use_kernel(vm_padded, masks, taps):
         res = event_conv_ref_banked(vm_padded, masks, taps, geometry)
         return res if out is None else out.copy_(res)
@@ -341,7 +385,7 @@ def event_conv_cuda_banked(vm_padded: torch.Tensor, masks: torch.Tensor,
     lib = _banked_lib()
     status = lib.event_conv_banked(
         out.data_ptr(), masks.data_ptr(), taps.data_ptr(), q, hp, wp, c,
-        c_in, kh, kw, want[3], want[4], runtime.DTYPE_CODES[vm_padded.dtype],
+        c_in, kh, kw, hbq, wbq, runtime.DTYPE_CODES[vm_padded.dtype],
         runtime.stream_ptr(vm_padded))
     runtime.LAUNCHES["event_conv_banked"] += 1
     runtime.check(lib, status, "event_conv_banked")

@@ -31,8 +31,10 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: ``-lineinfo`` lets compute-sanitizer name source lines; it does not
+#: change the generated code
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("event_conv", "event_conv_banked", "threshold_pool")
 
 #: launches per kernel since the last :func:`reset_launches`

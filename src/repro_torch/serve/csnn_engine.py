@@ -208,6 +208,8 @@ class CSNNEngine:
         """Host tensor -> the engine's device, through pinned memory and
         without waiting for the device."""
         if self.device.type != "cuda" or t.device == self.device:
+            # a CPU engine, or already on the device: nothing to wait for
+            # analysis: ignore[lint-host-sync-in-hot-path]
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 

@@ -455,3 +455,14 @@ def test_measured_tune_on_card_equals_analytic_plan(cuda, tmp_path):
     for a, b in zip(sa, st):
         assert torch.equal(a.in_spike_counts, b.in_spike_counts)
         assert torch.equal(a.out_spike_counts, b.out_spike_counts)
+
+
+@pytest.mark.gpu
+def test_kernel_audit_on_card_launches_every_kernel(cuda):
+    """``python -m repro_torch.analysis --only kernels`` in process: clean,
+    and each of the seven kernels counted a launch."""
+    from repro_torch.analysis.kernel_audit import KERNELS, run_kernel_audit
+    runtime.reset_launches()
+    rep = run_kernel_audit(device=cuda)
+    assert rep.ok, rep.summary()
+    assert all(runtime.LAUNCHES[k] > 0 for k in KERNELS), runtime.LAUNCHES
