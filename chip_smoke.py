@@ -78,7 +78,27 @@ Phases (any failure exits non-zero before the result line):
    ``torch.equal`` to ``snn_apply_batched``; and ``ingest=True`` tunes of
    FULL and SMOKE with 2 polarities (784 and 144 cells), printing both
    streamed finalizations' times, each tuned streamed forward held
-   against the CPU plain path;
+   against the CPU plain path; then ``snn_apply_sharded`` on FULL, B=8,
+   under the serve plan and ``"fused-handoff"``: one shard on the card,
+   two shards on two streams of it (and two cards where there are two),
+   under ``no_sync``, logits ``torch.equal`` and stats equal to the
+   card's ``snn_apply_batched``; then FULL at ``sat_bits`` 16 and 8
+   (``init_params(seed=0)`` normalized on 256 ``synth_digits`` images on
+   the CPU, ``quantize_params`` held equal on the card and the CPU,
+   ``quantized_threshold``) under the four plans, the serve and
+   ``event_par=1`` runs held against the CPU plain path, the fused and
+   banked runs exactly against the serve plan's card run; then the
+   conversion workflow on the card with cuDNN's TF32 switch at
+   PyTorch's default (on): one training step's gradients held at rtol
+   1e-5 (SMOKE: the card against the CPU; FULL: the card against the
+   card with the switch off), the error of a TF32 backward printed
+   beside, ``fit_ann`` (FULL, 150 steps, batch 64, 1000 images;
+   the loss every 50 steps, ms per step), the ANN's accuracy (gate:
+   90 %), ``normalize_params``, and the SNN's predictions and accuracy at
+   float32, int16 and int8 on 100 images, every prediction equal to
+   ``snn_apply_batched`` under the serve plan's knobs, the first 8 to the
+   CPU plain path's, the float32 ones to two shards' (accuracies printed,
+   not gated); each of these phases prints its seconds;
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
    kernels its plan's layers resolve to and no other, each exactly once
@@ -88,12 +108,16 @@ Phases (any failure exits non-zero before the result line):
    50; the micro-batching engine 2 x (50 + 50); the continuous engine 10
    conv + 10 threshold per chunk, the conv through the single-queue
    kernel at bucket 1; each stream engine run as one forward of its
-   plan; the tuned runs by their winners);
+   plan; the tuned runs by their winners; each sharded run its shards'
+   sum of one forward of its slice; the int16/int8 runs as the float32
+   ones);
 6. run ``python -m repro_torch.launch.serve --arch csnn-paper
    --requests 8`` (batched, ``--engine``, ``--engine --continuous
    --t-chunk 1``, ``--stream``, ``--tune measured`` and ``--tune cached``
-   with ``REPRO_TORCH_PLAN_CACHE`` in the temporary directory) and
-   ``python -m repro_torch.launch.quickstart`` and print their lines;
+   with ``REPRO_TORCH_PLAN_CACHE`` in the temporary directory),
+   ``python -m repro_torch.launch.quickstart`` and ``python -m
+   repro_torch.launch.train_csnn --steps 150 --n-train 1000 --n-eval
+   100`` and print their lines;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -117,6 +141,7 @@ line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -872,6 +897,10 @@ def to_cpu(p):
     return {k: {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
 
 
+def to_card(p, dev):
+    return {k: {n: t.to(dev) for n, t in v.items()} for k, v in p.items()}
+
+
 def main_path(dev, cfg, wcfg):
     """Phases 4-5: the batched main paths on the card, each held against
     the CPU plain path.  Returns (launch counts per kernel, params,
@@ -1054,6 +1083,302 @@ def truncated(runs, plan) -> int:
     layer's capacity."""
     return sum(int((st.in_spike_counts > lp.capacity).sum())
                for _, stats in runs for st, lp in zip(stats, plan.layers))
+
+
+# ---------------------------------------- phase 4, sharding, int, conversion
+def stats_equal(got, want) -> bool:
+    """Two runs' LayerStats lists: every field equal."""
+    import torch
+    return len(got) == len(want) and all(
+        all(torch.equal(getattr(a, f), getattr(b, f))
+            for f in ("in_spike_counts", "out_spike_counts", "in_sparsity"))
+        and (a.event_block, a.event_par) == (b.event_block, b.event_par)
+        for a, b in zip(got, want))
+
+
+def sharded_path(dev, cfg, params, imgs, plans, launches) -> None:
+    """``snn_apply_sharded`` on FULL, B=8, under the serve plan and the
+    ``"fused-handoff"`` pin: one shard on the card, two shards on two
+    streams of the card, and two cards when there are two; each run under
+    ``no_sync``, its logits ``torch.equal`` and its stats equal to the
+    card's ``snn_apply_batched``, and each shard launching what one
+    forward of its slice launches."""
+    import torch
+
+    from repro_torch.core.csnn import (encode_input, snn_apply_batched,
+                                       snn_apply_sharded)
+    spikes = encode_input(imgs.to(dev), cfg)
+    layouts = [("1 shard", [dev]), ("2 shards on 2 streams", [dev, dev])]
+    if torch.cuda.device_count() > 1:
+        layouts.append(("2 devices", [torch.device("cuda", 0),
+                                      torch.device("cuda", 1)]))
+    for path in ("serve plan (interlaced)", "fused-handoff"):
+        plan = plans[path]
+        want, wstats = snn_apply_batched(params, spikes, cfg, plan)
+        for name, devices in layouts:
+            n = len(devices)
+            per_shard = exact_launches(plan, cfg.t_steps, batch=B // n)
+            t0 = time.perf_counter()
+            got, stats = counted(
+                f"sharded {path}, {name}",
+                lambda d=devices, p=plan: no_sync(lambda: snn_apply_sharded(
+                    params, spikes, cfg, p, devices=d, collect_stats=True)),
+                launches, {k: n * v for k, v in per_shard.items()})
+            wall = time.perf_counter() - t0
+            if not (torch.equal(got, want) and stats_equal(stats, wstats)):
+                fail(f"sharded {path}, {name}: differs from "
+                     f"snn_apply_batched on the card (logit max diff "
+                     f"{(got - want).abs().max().item()})")
+            print(f"csnn_paper.FULL sharded {path}, {name} (B={B}): logits "
+                  f"torch.equal snn_apply_batched, stats equal; "
+                  f"{wall * 1e3:.1f} ms wall with the first-run costs")
+
+
+def int_path(dev, cfg, launches) -> None:
+    """FULL at ``sat_bits`` 16 and 8: parameters from ``init_params(seed=0)``
+    normalized on 256 ``synth_digits`` images on the CPU, then
+    ``quantize_params`` (card == CPU on the same float parameters) and
+    ``quantized_threshold``.  B=8 forwards under the serve plan,
+    ``event_par=1``, ``"fused-handoff"`` and ``"banked-cuda"``: the first
+    two held against the CPU plain path, the other two exactly against
+    the serve plan's card run; each launching exactly its path's
+    kernels."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.conversion import (normalize_params,
+                                             quantize_params,
+                                             quantized_threshold)
+    from repro_torch.core.csnn import ConvSpec, encode_input, init_params
+    from repro_torch.core.plan import plan_network
+    from repro_torch.data.synthetic import synth_digits
+
+    calib, _ = synth_digits(256, seed=0)
+    norm = normalize_params(init_params(cfg, seed=0, device="cpu"),
+                            torch.from_numpy(calib), cfg)
+    images, _ = synth_digits(B, seed=1)
+    spikes = encode_input(torch.from_numpy(images).to(dev), cfg)
+    n_conv = sum(isinstance(s, ConvSpec) for s in cfg.layers)
+    conv = {k: v for k, v in norm.items() if k.startswith("conv")}
+    for bits in (16, 8):
+        q_cpu, spec = quantize_params(conv, bits, v_t=cfg.v_t)
+        q_card, spec_card = quantize_params(
+            {k: {n: t.to(dev) for n, t in p.items()} for k, p in conv.items()},
+            bits, v_t=cfg.v_t)
+        if spec_card != spec or any(
+                not torch.equal(q_card[k][n].cpu(), q_cpu[k][n])
+                for k in q_cpu for n in ("w", "b")):
+            fail(f"int{bits}: quantize_params on the card differs from the "
+                 f"CPU")
+        qcfg = dataclasses.replace(cfg, v_t=quantized_threshold(cfg.v_t,
+                                                                spec))
+        cpu_params = {**norm, **q_cpu}
+        card_params = {k: {n: t.to(dev) for n, t in p.items()}
+                       for k, p in cpu_params.items()}
+        print(f"int{bits}: quantize_params card == CPU (scale "
+              f"{spec.scale!r}, integer V_t {qcfg.v_t}, conv weights "
+              f"{q_cpu['conv0']['w'].dtype})")
+        knobs = dict(capacity=256, channel_block=8, batch_tile=8,
+                     sat_bits=bits)
+        iplans = dict(zip(BATCHED_PATHS, (
+            plan_network(qcfg, event_par=None, **knobs),
+            plan_network(qcfg, event_par=1, **knobs),
+            plan_network(qcfg, variant=["fused-handoff"] * n_conv, **knobs),
+            plan_network(qcfg, variant=["banked-cuda"] * n_conv, **knobs))))
+        got = {path: counted(f"int{bits} {path}", lambda p=plan: forward(
+            card_params, spikes, qcfg, p), launches,
+            exact_launches(plan, cfg.t_steps)) for path, plan in
+            iplans.items()}
+        serve = got["serve plan (interlaced)"]
+        if not serve[2].fc_drive.any():
+            fail(f"int{bits}: no spike reached the FC head")
+        for path in BATCHED_PATHS[:2]:
+            hold(f"csnn_paper.FULL int{bits} {path}", got[path],
+                 forward(cpu_params, spikes.cpu(), qcfg, iplans[path]))
+        for path in BATCHED_PATHS[2:]:
+            hold_same(f"csnn_paper.FULL int{bits} {path} vs serve plan "
+                      f"(card)", got[path], serve)
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """cuDNN's TF32 switch set to ``on`` inside the block (on is
+    PyTorch's default, what a user's process runs ``fit_ann`` under)."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def step_grads(params, x, y, cfg, *, guarded=True) -> dict:
+    """One ``fit_ann`` step's gradients: through ``_loss_and_grads`` (the
+    whole step under the float32 guard), or with the backward outside the
+    guard, as ``fit_ann`` ran before (a TF32 backward under TF32 on)."""
+    import torch
+
+    from repro_torch.core.conversion import _loss, _loss_and_grads
+    if guarded:
+        return _loss_and_grads(params, x, y, cfg)[1]
+    leaves = {k: {n: t.detach().requires_grad_() for n, t in p.items()}
+              for k, p in params.items()}
+    grads = iter(torch.autograd.grad(
+        _loss(leaves, x, y, cfg),
+        [t for p in leaves.values() for t in p.values()]))
+    return {k: {n: next(grads) for n in p} for k, p in leaves.items()}
+
+
+def over_tolerance(got, want) -> float:
+    """The largest |got - want| over what rtol 1e-5 and atol 1e-5 x the
+    tensor's largest |want| allow (tests/test_torch_conversion.py holds
+    the CPU's gradients to JAX's so): at most 1 passes."""
+    return max(float(((got[k][n].cpu() - w.cpu()).abs()
+                      / (1e-5 * (w.abs() + w.abs().max())).cpu().clamp_min(
+                          1e-30)).max())
+               for k, p in want.items() for n, w in p.items())
+
+
+def check_gradients(dev, smoke, full, xtr, ytr) -> None:
+    """``fit_ann``'s step gradients with cuDNN's TF32 switch on (the
+    caller's ``tf32(True)``).  SMOKE, 64 ``synth_digits``: the card
+    against the CPU.  FULL, ``fit_ann``'s first batch: the card against
+    the card with the switch off, so that only the switch differs (the
+    card against the CPU is printed: float32 near a kink of the clamped
+    ReLU puts whole terms of the sum on one side there and not the
+    other).  Each gated at :func:`over_tolerance` <= 1; the same step
+    with a TF32 backward is measured beside each."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.csnn import init_params
+    from repro_torch.data.synthetic import synth_digits
+
+    images, labels = synth_digits(64, seed=0, hw=smoke.input_hw)
+    x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+    params = init_params(smoke, seed=0, device="cpu")
+    want = step_grads(params, x, y, smoke)
+    card = to_card(params, dev)
+    cases = [("SMOKE, card vs CPU", want, card, x.to(dev), y.to(dev),
+              smoke)]
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, len(xtr),
+                                                             64))
+    x = torch.from_numpy(xtr)[idx].to(dev)
+    y = torch.from_numpy(ytr).long()[idx].to(dev)
+    card = init_params(full, seed=0, device=dev)
+    with tf32(False):
+        want = step_grads(card, x, y, full)
+    cases.append(("FULL, card vs card with the switch off", want, card, x,
+                  y, full))
+    for name, want, card, x, y, cfg in cases:
+        ratio = over_tolerance(step_grads(card, x, y, cfg), want)
+        loose = over_tolerance(step_grads(card, x, y, cfg, guarded=False),
+                               want)
+        print(f"fit_ann step gradients, {name} (TF32 switch on): "
+              f"{ratio:.3g} of the tolerance (rtol 1e-5, atol 1e-5 x max); "
+              f"with a TF32 backward: {loose:.3g}")
+        if ratio > 1.0:
+            fail(f"fit_ann's gradients ({name}) differ by {ratio:.3g} x "
+                 f"the tolerance")
+    cpu = step_grads(to_cpu(card), x.cpu(), y.cpu(), full)
+    ratio, loose = (over_tolerance(step_grads(card, x, y, full, guarded=g),
+                                   cpu) for g in (True, False))
+    print(f"fit_ann step gradients, FULL, card vs CPU (printed, not held): "
+          f"{ratio:.3g} of the tolerance; with a TF32 backward: "
+          f"{loose:.3g}")
+
+
+def conversion_path(dev, cfg) -> None:
+    """The paper's Sec. VII workflow on the card, with cuDNN's TF32
+    switch left on as in a user's process: one training step's gradients
+    against the CPU's (:func:`check_gradients`), ``fit_ann`` on FULL (150
+    steps, batch 64, 1000 ``synth_digits`` of seed 0), ``ann_accuracy``,
+    ``normalize_params`` (256 training images), then ``snn_predictions``
+    at float32, int16 and int8 on 100 images of seed 1 (capacity 400),
+    the accuracy taken from them.  Every card prediction equals the
+    card's ``snn_apply_batched`` under the serve plan's knobs at the same
+    capacity; the first 8 at each dtype equal the CPU plain path's; the
+    float32 predictions sharded over two streams equal the unsharded
+    ones.  Gates on the gradients, those equalities and on the ANN
+    reaching 90 %; the accuracies are printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.conversion import (ann_accuracy, fit_ann,
+                                             normalize_params,
+                                             quantize_params,
+                                             quantized_threshold,
+                                             snn_predictions)
+    from repro_torch.core.csnn import (encode_input, init_params,
+                                       snn_apply_batched)
+    from repro_torch.core.plan import plan_network
+    from repro_torch.data.synthetic import synth_digits
+
+    xtr, ytr = synth_digits(1000, seed=0)
+    xte, yte = synth_digits(100, seed=1)
+    steps = 150
+    params = init_params(cfg, seed=0, device=dev)
+    with tf32(True):
+        check_gradients(dev, csnn_paper.SMOKE, cfg, xtr, ytr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = fit_ann(params, cfg, xtr, ytr, steps=steps, batch=64,
+                         log_every=50)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        acc_ann = ann_accuracy(params, cfg, xte, yte)
+    print(f"fit_ann: {steps} steps in {train_s:.3f} s "
+          f"({1e3 * train_s / steps:.3f} ms/step, the first step's "
+          f"compilation included); ANN accuracy {100 * acc_ann:.1f}%")
+    if acc_ann < 0.9:
+        fail(f"the ANN did not learn: accuracy {acc_ann}")
+    params = normalize_params(params, torch.from_numpy(xtr[:256]).to(dev),
+                              cfg)
+    conv = {k: v for k, v in params.items() if k.startswith("conv")}
+    for bits in (None, 16, 8):
+        bparams, bcfg, label = params, cfg, "float32"
+        if bits:
+            q, spec = quantize_params(conv, bits, v_t=cfg.v_t)
+            bparams = {**params, **q}
+            bcfg = dataclasses.replace(cfg, v_t=quantized_threshold(cfg.v_t,
+                                                                    spec))
+            label = f"int{bits} (scale {spec.scale:.5g}, V_t {bcfg.v_t})"
+        kw = dict(capacity=400, sat_bits=bits)
+        t0 = time.perf_counter()
+        preds = snn_predictions(bparams, bcfg, xte, **kw)
+        eval_s = time.perf_counter() - t0
+        acc = float((preds == torch.from_numpy(yte)).float().mean())
+        serve = plan_network(bcfg, capacity=400, channel_block=8,
+                             event_par=None, sat_bits=bits)
+        served = torch.cat([snn_apply_batched(
+            bparams, encode_input(torch.from_numpy(xte[i:i + 32]).to(dev),
+                                  bcfg), bcfg, serve,
+            collect_stats=False).argmax(-1).cpu() for i in range(0, 100, 32)])
+        if not torch.equal(served, preds):
+            fail(f"conversion {label}: snn_predictions differ from "
+                 f"snn_apply_batched under the serve plan on "
+                 f"{int((served != preds).sum())} images")
+        cpu = snn_predictions(to_cpu(bparams), bcfg, xte[:8],
+                              channel_block=8, **kw)
+        if not torch.equal(cpu, preds[:8]):
+            fail(f"conversion {label}: the first 8 predictions "
+                 f"{preds[:8].tolist()} differ from the CPU plain path's "
+                 f"{cpu.tolist()}")
+        also = ""
+        if bits is None:
+            sharded = snn_predictions(bparams, bcfg, xte, devices=[dev, dev],
+                                      **kw)
+            if not torch.equal(sharded, preds):
+                fail("conversion float32: sharded predictions differ")
+            also = " == sharded over 2 streams (100/100)"
+        print(f"conversion {label}: SNN accuracy {100 * acc:.1f}% on 100 "
+              f"images (T={cfg.t_steps}, {eval_s:.3f} s); predictions == "
+              f"snn_apply_batched under the serve plan (100/100) == the CPU "
+              f"plain path (first 8){also}")
 
 
 # ------------------------------------------------------- phase 4, engine
@@ -2058,6 +2383,16 @@ def main() -> int:
         plans["tuned plan"] = tuned_path(dev, csnn_paper.FULL, params, imgs,
                                          serve_run, launches, Path(tmp))
         tuned_ingest(dev, Path(tmp))
+        for name, phase in (
+                ("sharding", lambda: sharded_path(
+                    dev, csnn_paper.FULL, params, imgs, plans, launches)),
+                ("int datapaths", lambda: int_path(dev, csnn_paper.FULL,
+                                                   launches)),
+                ("conversion", lambda: conversion_path(dev,
+                                                       csnn_paper.FULL))):
+            t0 = time.perf_counter()
+            phase()
+            print(f"phase 4, {name}: {time.perf_counter() - t0:.1f} s")
         print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
         env = dict(os.environ, PYTHONPATH=str(SRC),      # phase 6
@@ -2089,6 +2424,13 @@ def main() -> int:
     print(quick.stdout, end="")
     if quick.returncode != 0 or "dense-oracle match: True" not in quick.stdout:
         fail(f"quickstart exited {quick.returncode}:\n{quick.stderr}")
+    train = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train_csnn", "--steps",
+         "150", "--n-train", "1000", "--n-eval", "100"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    print(train.stdout, end="")
+    if train.returncode != 0 or "int8 saturating datapath" not in train.stdout:
+        fail(f"train_csnn exited {train.returncode}:\n{train.stderr}")
 
     kernels = timing(dev, csnn_paper.FULL, params, imgs, plans,  # phase 7
                      card)

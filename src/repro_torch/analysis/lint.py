@@ -45,10 +45,11 @@ from .report import Report
 IGNORE_RE = re.compile(r"#\s*analysis:\s*ignore\[([a-zA-Z0-9,\- ]+)\]")
 
 #: (path suffix, qualified name) of the hot roots: the forward's chunk
-#: step and the scheduler's batched runners under it, and the engine's
-#: chunk step and batch inference
+#: step and the scheduler's batched runners under it, the sharded
+#: forward, and the engine's chunk step and batch inference
 HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("core/csnn.py", "snn_step_chunk"),
+    ("core/csnn.py", "snn_apply_sharded"),
     ("core/scheduler.py", "run_conv_layer_batched_chunk"),
     ("core/scheduler.py", "run_conv_layer_batched_chunk_streamed"),
     ("serve/csnn_engine.py", "CSNNEngine._step"),

@@ -4,10 +4,14 @@
 * ``snn_apply_batched`` — event-driven m-TTFS inference for a sample
   batch, the serving entry point: ``init_state``, then
   ``snn_step_chunk`` once per time chunk, then ``snn_readout``;
+* ``snn_apply_sharded`` — ``snn_apply_batched`` with the batch split
+  over a list of devices (the conv stack per shard, the FC head once on
+  the gathered batch);
 * ``snn_apply`` — the same inference for ONE sample, layer by layer
   (``scheduler.run_conv_layer_planned``, then ``run_fc_head``);
 * ``snn_apply_dense`` — the frame-based spiking oracle, and
-  ``ann_apply`` — the clamped-ReLU CNN the network is converted from;
+  ``ann_apply`` — the clamped-ReLU CNN the network is converted from
+  (``core.conversion`` trains it);
 * :class:`CSNN` — an ``nn.Module`` holding the parameters under the JAX
   package's keys (``conv0.w``, ``fc3.b``, ...) whose forward is
   ``snn_apply_batched``.
@@ -19,6 +23,7 @@ across unchanged.  Tensors live on ``device``, which defaults to
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Sequence
 
@@ -99,13 +104,23 @@ def ann_apply(params: dict, images: torch.Tensor,
     for idx, spec in enumerate(cfg.layers):
         if isinstance(spec, ConvSpec):
             p = params[f"conv{idx}"]
-            x = (conv2d_same(x, p["w"]) + p["b"]).clamp(0.0, cfg.relu_clamp)
+            x = clamped_relu(conv2d_same(x, p["w"]) + p["b"], cfg.relu_clamp)
             if spec.pool:
                 x = _max_pool(x, spec.pool)
         else:
             p = params[f"fc{idx}"]
             x = x.reshape(x.shape[0], -1) @ p["w"] + p["b"]
     return x
+
+
+def clamped_relu(x: torch.Tensor, ceiling: float) -> torch.Tensor:
+    """``jnp.clip(x, 0, ceiling)`` with its gradient: ``minimum(maximum(x,
+    0), ceiling)``, whose backward splits a tie (x exactly 0 or exactly
+    ``ceiling``) half and half as JAX's does; ``Tensor.clamp`` passes the
+    whole gradient there.  The forward values are the same."""
+    lo = torch.zeros((), dtype=x.dtype, device=x.device)
+    hi = torch.full((), ceiling, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
 
 
 def _max_pool(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -317,19 +332,143 @@ def snn_apply_batched(
     chunking.
     """
     plan = plan_network(cfg) if plan is None else plan.validate(cfg)
-    t, chunk = cfg.t_steps, plan.chunk_steps
+    state, stats = _run_chunks(params, in_spikes, cfg, plan)
+    logits = snn_readout(params, state, cfg, plan)
+    return (logits, stats) if collect_stats else logits
+
+
+def _run_chunks(params: dict, in_spikes: torch.Tensor, cfg: CSNNConfig,
+                plan: NetworkPlan) -> tuple[CSNNState, list]:
+    """``snn_step_chunk`` over the whole window from a fresh state: the
+    final state (its ``fc_drive`` per sample) and the merged LayerStats."""
+    chunk = plan.chunk_steps
     state = init_state(params, cfg, plan, in_spikes.shape[0],
                        device=in_spikes.device)
     chunk_stats = []
-    for k in range(0, t, chunk):
+    for k in range(0, cfg.t_steps, chunk):
         state, stats = snn_step_chunk(
             params, state, in_spikes[:, k:k + chunk], cfg, plan,
             collect_stats=True)
         chunk_stats.append(stats)
-    logits = snn_readout(params, state, cfg, plan)
-    if not collect_stats:
-        return logits
-    return logits, _merge_chunk_stats(chunk_stats)
+    return state, _merge_chunk_stats(chunk_stats)
+
+
+def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: queued on the current stream onto a card;
+    blocking onto the host, whose reader waits on no stream."""
+    if device.type == "cuda":
+        return t.to(device, non_blocking=True)
+    # only a shard or head on the host copies here, and it reads next
+    # analysis: ignore[lint-host-sync-in-hot-path]
+    return t.to(device)
+
+
+def _params_on(params: dict, device: torch.device) -> dict:
+    """The parameters on ``device``, copied on that device's current
+    stream (no copy where they already live there)."""
+    with (torch.cuda.device(device) if device.type == "cuda"
+          else contextlib.nullcontext()):
+        return {k: {n: _to(t, device) for n, t in p.items()}
+                for k, p in params.items()}
+
+
+_SAMPLE_FIELDS = ("in_spike_counts", "out_spike_counts", "in_sparsity")
+
+
+def _merge_shard_stats(shards: list) -> list:
+    """Per-shard LayerStats -> the batch's: the per-sample fields
+    concatenate in shard order; ``event_block`` and ``event_par`` are the
+    same in every shard (JAX's ``out_specs`` replicate them) and are taken
+    from shard 0."""
+    merged = []
+    for per_layer in zip(*shards):
+        first = per_layer[0]
+        if any((s.event_block, s.event_par)
+               != (first.event_block, first.event_par) for s in per_layer):
+            raise RuntimeError("shards disagree on event_block/event_par")
+        merged.append(first._replace(**{
+            f: torch.cat([getattr(s, f) for s in per_layer])
+            for f in _SAMPLE_FIELDS}))
+    return merged
+
+
+def snn_apply_sharded(
+    params: dict,
+    in_spikes: torch.Tensor,
+    cfg: CSNNConfig,
+    plan: Optional[NetworkPlan] = None,
+    *,
+    devices: Optional[Sequence] = None,
+    capacity: int | Sequence[int] = 256,
+    channel_block: int = 1,
+    sat_bits: Optional[int] = None,
+    collect_stats: bool = False,
+):
+    """:func:`snn_apply_batched` sharded over the batch axis.
+
+    in_spikes: (B, T, H, W, C_in) bool with B divisible by
+    ``len(devices)``.  ``devices`` (where JAX takes a 1-D ``mesh``)
+    defaults to every visible CUDA device
+    (``sharding.specs.batch_devices``, which raises without one); a device
+    may repeat.  Shard i runs ``snn_step_chunk`` over the window on
+    ``devices[i]`` with no communication — on a CUDA device on a stream of
+    its own, so shards sharing a card may overlap.  Each shard's (B/n, D)
+    head drive (exact integer spike counts) is gathered on ``devices[0]``
+    and ``snn_readout`` runs once on the whole (B, D) drive, the head call
+    of :func:`snn_apply_batched`, so the logits ``torch.equal`` its.  This
+    thread issues the shards in turn.
+
+    Stream order on CUDA: the parameters are copied once per distinct
+    device on that device's current stream; each shard's stream waits for
+    that stream and for the stream that produced ``in_spikes``; a shard's
+    outputs move to ``devices[0]`` on the shard's stream (a copy between
+    cards makes the head's stream wait for it).  After the shards, every
+    device's current stream waits on an event recorded after each of its
+    shards, so the head reads finished drives and no tensor the shards
+    read is freed under them; the shard outputs the head reads are
+    ``record_stream``-ed to the head's stream.
+    """
+    plan = _resolve_plan(cfg, plan, capacity, channel_block, sat_bits)
+    if devices is None:
+        from repro_torch.sharding.specs import batch_devices
+        devices = batch_devices()
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("snn_apply_sharded needs at least one device")
+    b, n = in_spikes.shape[0], len(devices)
+    if b % n != 0:
+        raise ValueError(f"batch {b} does not divide over {n} devices")
+    per, head = b // n, devices[0]
+    placed = {dev: _params_on(params, dev) for dev in dict.fromkeys(devices)}
+    waits = [torch.cuda.current_stream(d) for d in
+             dict.fromkeys([*placed, in_spikes.device]) if d.type == "cuda"]
+    drives, stats, done = [], [], []
+    for i, dev in enumerate(devices):
+        stream = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+        if stream is not None:
+            for w in waits:
+                stream.wait_stream(w)
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            x = _to(in_spikes[i * per:(i + 1) * per], dev)
+            state, st = _run_chunks(placed[dev], x, cfg, plan)
+            drives.append(_to(state.fc_drive, head))
+            stats.append([s._replace(**{
+                f: _to(getattr(s, f), head)
+                for f in _SAMPLE_FIELDS}) for s in st])
+        if stream is not None:
+            done.append((dev, stream.record_event()))
+    for dev, ev in done:
+        torch.cuda.current_stream(dev).wait_event(ev)
+    if head.type == "cuda":
+        head_stream = torch.cuda.current_stream(head)
+        for t in drives + [getattr(s, f) for st in stats for s in st
+                           for f in _SAMPLE_FIELDS]:
+            t.record_stream(head_stream)
+    logits = snn_readout(placed[head], CSNNState(convs=(),
+                                                 fc_drive=torch.cat(drives)),
+                         cfg, plan)
+    return (logits, _merge_shard_stats(stats)) if collect_stats else logits
 
 
 class CSNN(nn.Module):

@@ -3,11 +3,15 @@
 
 Thresholds are applied in decreasing order over time: at t=0 only pixels
 above the largest threshold spike, each later step lowers the threshold,
-so every per-pixel train is monotone (0...0 1...1).
+so every per-pixel train is monotone (0...0 1...1).  ``rate_encode`` is
+the Bernoulli rate-coding baseline; ``spike_sparsity`` the zero share of
+a spike map.
 """
 from __future__ import annotations
 
 import torch
+
+from .xla_arith import reciprocal_f32
 
 
 def mttfs_thresholds(t_steps: int, lo: float = 0.0, hi: float = 1.0,
@@ -44,3 +48,30 @@ def multi_threshold_encode(frames: torch.Tensor, thresholds: torch.Tensor,
     order = order.to(frames.device, non_blocking=True)
     order = order.reshape((t_steps,) + (1,) * frames.ndim)
     return frames[None] > order
+
+
+def rate_encode(frames: torch.Tensor, t_steps: int,
+                generator: torch.Generator) -> torch.Tensor:
+    """Bernoulli rate coding baseline: P(spike at t) = pixel intensity in
+    [0, 1].  (..,) frames -> (T, ...) bool, uniforms drawn from
+    ``generator`` on its device (:func:`rate_encode_uniform`)."""
+    u = torch.rand((t_steps,) + tuple(frames.shape), generator=generator,
+                   device=generator.device)
+    return rate_encode_uniform(frames, u.to(frames.device, non_blocking=True))
+
+
+def rate_encode_uniform(frames: torch.Tensor,
+                        uniforms: torch.Tensor) -> torch.Tensor:
+    """:func:`rate_encode` given its (T, ...) float32 uniforms in [0, 1):
+    ``uniforms < clip(frames, 0, 1)``, which is ``jax.random.bernoulli``
+    (so JAX's uniforms give JAX's spikes exactly)."""
+    return uniforms < frames.clamp(0.0, 1.0)[None]
+
+
+def spike_sparsity(spikes: torch.Tensor) -> torch.Tensor:
+    """Fraction of zero entries, the paper's 'sparsity' metric (Table
+    III), as a 0-dim float32 tensor.  The mean is the exact spike count
+    times float32(1 / n), as XLA compiles ``jnp.mean``
+    (``core.xla_arith``), so the value is JAX's bit for bit."""
+    inv_n = torch.tensor(reciprocal_f32(max(spikes.numel(), 1)))
+    return 1.0 - spikes.to(torch.float32).sum() * inv_n.to(spikes.device)

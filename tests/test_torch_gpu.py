@@ -466,3 +466,98 @@ def test_kernel_audit_on_card_launches_every_kernel(cuda):
     rep = run_kernel_audit(device=cuda)
     assert rep.ok, rep.summary()
     assert all(runtime.LAUNCHES[k] > 0 for k in KERNELS), runtime.LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [None, "fused-handoff"])
+def test_sharded_on_card_streams_equal_snn_apply_batched(cuda, variant):
+    """Two and four shards on streams of one card: logits ``torch.equal``
+    and stats equal to the unsharded forward."""
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.csnn import (encode_input, init_params,
+                                       snn_apply_batched, snn_apply_sharded)
+    from repro_torch.core.plan import plan_network
+    cfg = csnn_paper.SMOKE
+    params = init_params(cfg, seed=3, device=cuda)
+    imgs = torch.rand((8, 12, 12, 1), generator=torch.Generator().manual_seed(3))
+    spikes = encode_input(imgs.to(cuda), cfg)
+    plan = plan_network(cfg, capacity=64, channel_block=4, event_par=None,
+                        variant=variant)
+    want, wstats = snn_apply_batched(params, spikes, cfg, plan)
+    for n in (2, 4):
+        got, stats = snn_apply_sharded(params, spikes, cfg, plan,
+                                       devices=[cuda] * n, collect_stats=True)
+        assert torch.equal(got, want)
+        for a, b in zip(stats, wstats):
+            for f in ("in_spike_counts", "out_spike_counts", "in_sparsity"):
+                assert torch.equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.gpu
+def test_sharded_copies_host_parameters_before_shards_read(cuda):
+    """Host parameters and two shards on one card: each shard reads the
+    parameters' card copy only once it has landed."""
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.csnn import (encode_input, init_params,
+                                       snn_apply_batched, snn_apply_sharded)
+    from repro_torch.core.plan import plan_network
+    cfg = csnn_paper.SMOKE
+    params = init_params(cfg, seed=4, device="cpu")
+    imgs = torch.rand((8, 12, 12, 1),
+                      generator=torch.Generator().manual_seed(4))
+    spikes = encode_input(imgs.to(cuda), cfg)
+    plan = plan_network(cfg, capacity=64, channel_block=4, event_par=None)
+    want = snn_apply_batched({k: {n: t.to(cuda) for n, t in p.items()}
+                              for k, p in params.items()}, spikes, cfg, plan,
+                             collect_stats=False)
+    for _ in range(3):
+        got = snn_apply_sharded(params, spikes, cfg, plan,
+                                devices=[cuda, cuda])
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_training_gradients_on_card_equal_cpu_with_tf32_on(cuda):
+    """One ``fit_ann`` step's gradients on the card equal the CPU's at
+    rtol 1e-5 with cuDNN's TF32 switch at PyTorch's default (on): the
+    step's convolutions, backward included, run in full float32."""
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.conversion import _loss_and_grads
+    from repro_torch.core.csnn import init_params
+    from repro_torch.data.synthetic import synth_digits
+    cfg = csnn_paper.SMOKE
+    images, labels = synth_digits(64, seed=0, hw=cfg.input_hw)
+    params = init_params(cfg, seed=0, device="cpu")
+    x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+    _, want = _loss_and_grads(params, x, y, cfg)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _, got = _loss_and_grads(
+            {k: {n: t.to(cuda) for n, t in p.items()}
+             for k, p in params.items()}, x.to(cuda), y.to(cuda), cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for k in want:
+        for n in want[k]:
+            w = want[k][n]
+            torch.testing.assert_close(got[k][n].cpu(), w, rtol=1e-5,
+                                       atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_on_card_equals_cpu(cuda, bits):
+    """The same integers on the card as on the CPU, values on .5
+    boundaries of the scale included."""
+    from repro_torch.core.quantization import (QuantSpec, calibrate_scale,
+                                               quantize)
+    g = torch.Generator().manual_seed(bits)
+    x = torch.randn(100_000, generator=g) * 0.3
+    scale = calibrate_scale(x, bits)
+    assert calibrate_scale(x.to(cuda), bits) == scale
+    spec = QuantSpec(bits, scale)
+    k = torch.randint(-spec.max_int, spec.max_int, (100_000,), generator=g)
+    vals = torch.cat([x, (k + 0.5) * torch.tensor(scale)])
+    assert torch.equal(quantize(vals.to(cuda), spec).cpu(),
+                       quantize(vals, spec))
