@@ -98,7 +98,26 @@ Phases (any failure exits non-zero before the result line):
    float32, int16 and int8 on 100 images, every prediction equal to
    ``snn_apply_batched`` under the serve plan's knobs, the first 8 to the
    CPU plain path's, the float32 ones to two shards' (accuracies printed,
-   not gated); each of these phases prints its seconds;
+   not gated); with FULL's step also in float64 on both sides (held at
+   the same tolerance), each float32 side against the CPU's float64 (the
+   card's also with cuDNN off), and the pre-activations that float32 puts
+   on other sides of the clamped ReLU's kinks at 0 and 1; each of these
+   phases prints its seconds;
+   then the LM phase (``chip_smoke.py --lm`` in a child process, which
+   keeps PyTorch's TF32 switches as a process starts; this process turns
+   them off for its yardsticks): the ten SMOKE LM architectures on the
+   card against the CPU plain path (prefill logits and cache, 4 decode
+   steps, float32 and bfloat16 caches); gemma3-1b FULL (26 layers, d
+   1152, vocab 262144, ~1.0 B float32 parameters from a CPU generator):
+   (a) B=2, a 64-token prompt and 8 teacher-forced decode steps, card
+   against CPU at float32 and bfloat16 caches, every step's logits held
+   and the argmax equal where the CPU's top-2 gap exceeds the tolerance;
+   (b) B=4, a 640-token prompt (the 512-slot ring wraps), 32 new tokens
+   through ``Engine.generate`` under ``set_sync_debug_mode("error")``
+   (d), equal to a manual greedy loop, and prefill of 640 tokens against
+   prefill of 639 plus one decode step (JAX's rtol 2e-2, atol 2e-3); (c)
+   B=1, 2304 tokens (the query-blocked path with sliding KV slices), the
+   same consistency.  No kernel is on the LM path;
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
    kernels its plan's layers resolve to and no other, each exactly once
@@ -117,7 +136,10 @@ Phases (any failure exits non-zero before the result line):
    with ``REPRO_TORCH_PLAN_CACHE`` in the temporary directory),
    ``python -m repro_torch.launch.quickstart`` and ``python -m
    repro_torch.launch.train_csnn --steps 150 --n-train 1000 --n-eval
-   100`` and print their lines;
+   100`` and print their lines; ``python -m repro_torch.launch.serve
+   --arch gemma3-1b --requests 2 --prompt-len 16 --new-tokens 8`` (FULL)
+   and ``--smoke`` runs of deepseek-v2-236b, whisper-medium and
+   qwen2-vl-7b, the four at once;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -134,7 +156,11 @@ Phases (any failure exits non-zero before the result line):
    plan and event_par=1; then samples/s of the micro-batching,
    continuous and stream engines at B=8 / 8 slots beside
    ``snn_apply_batched`` of the same inputs, and a ``torch.profiler``
-   breakdown of one continuous engine pass, per chunk.
+   breakdown of one continuous engine pass, per chunk; then the LM
+   phase's timings of gemma3-1b FULL at B=4, a 640-token prompt and the
+   default bfloat16 cache: prefill tokens/s, decode ms per step and the
+   device's busy share over 8 decode steps, beside the card's name and
+   power limit.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -1285,9 +1311,138 @@ def check_gradients(dev, smoke, full, xtr, ytr) -> None:
     cpu = step_grads(to_cpu(card), x.cpu(), y.cpu(), full)
     ratio, loose = (over_tolerance(step_grads(card, x, y, full, guarded=g),
                                    cpu) for g in (True, False))
-    print(f"fit_ann step gradients, FULL, card vs CPU (printed, not held): "
-          f"{ratio:.3g} of the tolerance; with a TF32 backward: "
+    print(f"fit_ann step gradients, FULL, card vs CPU in float32 (printed, "
+          f"not held): {ratio:.3g} of the tolerance; with a TF32 backward: "
           f"{loose:.3g}")
+    full_float64(card, x, y, full, cpu)
+    pool_flip_sweep(card, xtr, ytr, full)
+
+
+def as_float64(p):
+    return {k: {n: t.double() for n, t in v.items()} for k, v in p.items()}
+
+
+def preactivations(params, x, cfg) -> list:
+    """``ann_apply``'s conv pre-activations (before the clamped ReLU) and
+    each pooled layer's max-pool indices, in the parameters' dtype."""
+    import torch
+
+    from repro_torch.core.csnn import ConvSpec, clamped_relu
+    from repro_torch.core.event_conv import conv2d_same
+    out = []
+    with torch.no_grad():
+        for idx, spec in enumerate(cfg.layers):
+            if not isinstance(spec, ConvSpec):
+                continue
+            p = params[f"conv{idx}"]
+            z = conv2d_same(x, p["w"]) + p["b"]
+            x = clamped_relu(z, cfg.relu_clamp)
+            pool = None
+            if spec.pool:   # csnn._max_pool, with the windows' indices
+                w = spec.pool
+                xp = torch.nn.functional.pad(
+                    x.permute(0, 3, 1, 2), (0, -x.shape[2] % w, 0, -x.shape[1] % w),
+                    value=float("-inf"))
+                x, pool = torch.nn.functional.max_pool2d(xp, w,
+                                                         return_indices=True)
+                x = x.permute(0, 2, 3, 1)
+            out.append((z, pool, x))
+    return out
+
+
+def kink_census(a, b, ceiling: float) -> list[dict]:
+    """Per conv layer, between two forwards: the pre-activations on other
+    sides of the clamped ReLU's kinks at 0 and at ``ceiling``, the
+    max-pool windows whose chosen input differs while its value is
+    strictly between the kinks on both sides (where a gradient flows),
+    and the largest pre-activation difference over the largest |z|."""
+    out = []
+    for (za, pa, xa), (zb, pb, xb) in zip(a, b):
+        za, zb = za.cpu().double(), zb.cpu().double()
+        row = dict(n=za.numel(), at0=int(((za > 0) != (zb > 0)).sum()),
+                   at1=int(((za > ceiling) != (zb > ceiling)).sum()),
+                   err=float((za - zb).abs().max() / zb.abs().max()),
+                   pool=None)
+        if pa is not None:
+            xa, xb = xa.cpu().double(), xb.cpu().double()
+            live = (xa > 0) & (xa < ceiling) & (xb > 0) & (xb < ceiling)
+            moved = (pa.cpu() != pb.cpu()).permute(0, 2, 3, 1) & live
+            row.update(pool=int(moved.sum()), windows=pa.numel())
+        out.append(row)
+    return out
+
+
+def census_text(rows, ceiling: float) -> str:
+    return "; ".join(
+        f"conv{i}: {r['at0']} at 0, {r['at1']} at {ceiling:g} of {r['n']} "
+        f"(max |dz| {r['err']:.3g} of max |z|)"
+        + ("" if r["pool"] is None else
+           f", pool argmax {r['pool']} of {r['windows']}")
+        for i, r in enumerate(rows))
+
+
+def full_float64(card, x, y, cfg, cpu) -> None:
+    """FULL's card-against-CPU gradient gap, settled: the same step in
+    float64 on both sides (held: the gate on FULL), each float32 side
+    against the CPU's float64, and the pre-activations that float32 puts
+    on other sides of the clamped ReLU's kinks than float64 or the other
+    device does."""
+    cpu64 = step_grads(as_float64(to_cpu(card)), x.cpu().double(), y.cpu(),
+                       cfg)
+    r64 = over_tolerance(step_grads(as_float64(card), x.double(), y, cfg),
+                         cpu64)
+    print(f"fit_ann step gradients, FULL, card vs CPU in float64 (held): "
+          f"{r64:.3g} of the tolerance")
+    if r64 > 1.0:
+        fail(f"fit_ann's FULL gradients in float64 differ between the card "
+             f"and the CPU by {r64:.3g} x the tolerance")
+    import torch
+    card32 = step_grads(card, x, y, cfg)
+    with torch.backends.cudnn.flags(enabled=False):
+        direct = step_grads(card, x, y, cfg)
+    print(f"fit_ann step gradients, FULL, float32 against the CPU's float64: "
+          f"card {over_tolerance(card32, cpu64):.3g} (with cuDNN off, "
+          f"PyTorch's own convolutions: {over_tolerance(direct, cpu64):.3g}), "
+          f"CPU {over_tolerance(cpu, cpu64):.3g} of the tolerance")
+    z = {"card float32": preactivations(card, x, cfg),
+         "CPU float32": preactivations(to_cpu(card), x.cpu(), cfg),
+         "CPU float64": preactivations(as_float64(to_cpu(card)),
+                                       x.cpu().double(), cfg)}
+    for a, b in (("card float32", "CPU float32"),
+                 ("card float32", "CPU float64"),
+                 ("CPU float32", "CPU float64")):
+        print(f"fit_ann FULL step 1 kinks, {a} vs {b}: "
+              f"{census_text(kink_census(z[a], z[b], cfg.relu_clamp), cfg.relu_clamp)}")
+
+
+def pool_flip_sweep(card, xtr, ytr, cfg, n: int = 8) -> None:
+    """``fit_ann``'s first ``n`` FULL batches: per batch, the card's
+    float32 step gradients against the CPU's, beside the kink crossings
+    and max-pool choices that differ between the two forwards."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    cpu_p = to_cpu(card)
+    rows = []
+    for _ in range(n):
+        idx = torch.from_numpy(rng.integers(0, len(xtr), 64))
+        x = torch.from_numpy(xtr)[idx]
+        y = torch.from_numpy(ytr).long()[idx]
+        ratio = over_tolerance(step_grads(card, x.to(card_device(card)),
+                                          y.to(card_device(card)), cfg),
+                               step_grads(cpu_p, x, y, cfg))
+        c = kink_census(preactivations(card, x.to(card_device(card)), cfg),
+                        preactivations(cpu_p, x, cfg), cfg.relu_clamp)
+        kinks = sum(r["at0"] + r["at1"] for r in c)
+        flips = sum(r["pool"] or 0 for r in c)
+        rows.append(f"{ratio:.3g} ({kinks} kinks, {flips} pool)")
+    print(f"fit_ann FULL step gradients card vs CPU in float32 over fit_ann's "
+          f"first {n} batches, ratio to the tolerance (kink crossings, "
+          f"max-pool choices that differ): {'; '.join(rows)}")
+
+
+def card_device(params):
+    return next(iter(params.values()))["w"].device
 
 
 def conversion_path(dev, cfg) -> None:
@@ -1379,6 +1534,335 @@ def conversion_path(dev, cfg) -> None:
               f"images (T={cfg.t_steps}, {eval_s:.3f} s); predictions == "
               f"snn_apply_batched under the serve plan (100/100) == the CPU "
               f"plain path (first 8){also}")
+
+
+# --------------------------------------------------------- phase 4, LM
+# Card against the CPU plain path: float32 sums in another order (cuBLAS
+# against the CPU's BLAS); atol is of the compared tensor's largest
+# magnitude (at least 1), as in tests/torch_lm_ref.py.  The models with
+# one or two KV heads have a sharp softmax (their wk/wv fan-in is the
+# KV-head axis) and amplify float32 noise through the layers.
+LM_F32 = dict(rtol=1e-4, atol=1e-4)
+LM_F32_SHARP = dict(rtol=1e-3, atol=1e-4)
+LM_BF16 = dict(rtol=2e-2, atol=2e-3)      # JAX's own (tests/test_models_smoke.py)
+LM_SHARP = {"granite-34b", "llama4-maverick-400b-a17b", "zamba2-1.2b",
+            "phi3-medium-14b", "qwen2-vl-7b"}
+# gemma3-1b FULL, 26 layers, card against CPU in float32 (stated before
+# the first card run): 10x the SMOKE float32 bounds
+LM_FULL_F32 = dict(rtol=1e-3, atol=1e-3)
+
+
+def lm_ratio(got, want, rtol: float, atol: float) -> float:
+    """The largest |got - want| / (rtol |want| + atol x max(1, max|want|)):
+    at most 1 passes."""
+    g = got.detach().cpu().double()
+    w = want.detach().cpu().double()
+    scale = max(1.0, float(w.abs().max()))
+    return float(((g - w).abs() / (rtol * w.abs() + atol * scale)).max())
+
+
+def hold_lm(name: str, got, want, tol: dict) -> float:
+    """Hold a tensor, or a tree of them (integer leaves equal), to
+    ``tol``; returns the worst :func:`lm_ratio`."""
+    import torch
+
+    from repro_torch.models.common import tree_leaves
+    g = tree_leaves(got, is_leaf=torch.is_tensor)
+    w = tree_leaves(want, is_leaf=torch.is_tensor)
+    if len(g) != len(w):
+        fail(f"{name}: {len(g)} leaves against {len(w)}")
+    worst = 0.0
+    for a, b in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{name}: {a.dtype}{tuple(a.shape)} against "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if not a.is_floating_point():
+            if not torch.equal(a.cpu(), b.cpu()):
+                fail(f"{name}: integer leaves differ")
+            continue
+        worst = max(worst, lm_ratio(a, b, **tol))
+    if worst > 1.0:
+        fail(f"{name}: {worst:.3g} x the tolerance {tol}")
+    return worst
+
+
+def lm_tree_to(tree, dev):
+    import torch
+
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: t.to(dev, copy=True), tree, is_leaf=torch.is_tensor)
+
+
+def lm_smoke_vs_cpu(dev, arch: str, dtype: str) -> str:
+    """One SMOKE architecture, card against the CPU plain path, the same
+    parameters (a CPU generator, copied): prefill logits and cache, then 4
+    decode steps, each card step from a copy of the CPU's cache of the
+    step before (so float32 noise does not compound in the sharp models);
+    each step's logits and the cache it writes are held."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models.registry import build_model
+    cfg = LM_ARCHS[arch].SMOKE
+    model = build_model(cfg)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card_p = lm_tree_to(cpu_p, dev)
+    g = torch.Generator().manual_seed(1)
+    b, s = 2, 24
+    tokens, extra = lm_inputs(cfg, b, s, g)
+    off = cfg.n_vision_tokens if cfg.family == "vlm" else 0
+    max_seq = s + 4 + off
+    cd = getattr(torch, dtype)
+    f32 = LM_F32_SHARP if arch in LM_SHARP else LM_F32
+    cache_tol = f32 if dtype == "float32" else LM_BF16
+    want, cpu_c = model.prefill(cpu_p, {"tokens": tokens, **extra}, max_seq, cd)
+    got, card_c = model.prefill(card_p, lm_tree_to({"tokens": tokens, **extra}, dev),
+                                max_seq, cd)
+    worst = [hold_lm(f"{arch} {dtype} prefill logits", got, want, f32),
+             hold_lm(f"{arch} {dtype} prefill cache", card_c, cpu_c, cache_tol)]
+    for i in range(4):
+        tok = torch.randint(0, cfg.vocab, (b, 1), generator=g, dtype=torch.int32)
+        card_c = lm_tree_to(cpu_c, dev)
+        want, cpu_c = model.decode(cpu_p, cpu_c, {"tokens": tok, "pos": s + off + i})
+        got, card_c = model.decode(card_p, card_c, {"tokens": tok.to(dev),
+                                                    "pos": s + off + i})
+        step_tol = LM_F32 if dtype == "float32" else LM_BF16
+        worst += [hold_lm(f"{arch} {dtype} decode step {i} logits", got, want,
+                          step_tol),
+                  hold_lm(f"{arch} {dtype} decode step {i} cache", card_c, cpu_c,
+                          step_tol)]
+    return f"{max(worst):.4g}"
+
+
+def top2_gap(logits):
+    import torch
+    top = torch.topk(logits.double(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def lm_full_teacher_forced(dev, model, cpu_p, card_p) -> None:
+    """(a) gemma3-1b FULL, B=2, a 64-token prompt and 8 teacher-forced
+    decode steps (the same tokens fed to both), card against the CPU plain
+    path at float32 and at the default bfloat16 cache: every step's
+    logits held, the argmax equal wherever the CPU's top-2 gap exceeds the
+    tolerance there."""
+    import torch
+    g = torch.Generator().manual_seed(1)
+    b, s, n = 2, 64, 8
+    tokens = torch.randint(0, model.cfg.vocab, (b, s + n), generator=g,
+                           dtype=torch.int32)
+    for dtype, tol in (("float32", LM_FULL_F32), ("bfloat16", LM_BF16)):
+        cd = getattr(torch, dtype)
+        want, cpu_c = model.prefill(cpu_p, {"tokens": tokens[:, :s]}, s + n, cd)
+        got, card_c = model.prefill(card_p, {"tokens": tokens[:, :s].to(dev)},
+                                    s + n, cd)
+        ratios, flips = [], 0
+        for i in range(n + 1):
+            ratios.append(hold_lm(f"gemma3-1b FULL {dtype} step {i}", got, want,
+                                  tol))
+            scale = max(1.0, float(want.abs().max()))
+            # either of the top two may move by the tolerance
+            clear = top2_gap(want) > 2 * (tol["rtol"] * want.abs().max(-1).values
+                                          + tol["atol"] * scale)
+            same = got.argmax(-1).cpu() == want.argmax(-1)
+            if not bool(same[clear].all()):
+                fail(f"gemma3-1b FULL {dtype} step {i}: argmax differs where "
+                     f"the CPU's top-2 gap exceeds the tolerance")
+            flips += int((~same).sum())
+            if i == n:
+                break
+            tok = tokens[:, s + i:s + i + 1]
+            want, cpu_c = model.decode(cpu_p, cpu_c, {"tokens": tok, "pos": s + i})
+            got, card_c = model.decode(card_p, card_c, {"tokens": tok.to(dev),
+                                                        "pos": s + i})
+        print(f"lm gemma3-1b FULL (a) B=2 prompt 64 + 8 teacher-forced steps, "
+              f"{dtype} cache: card vs CPU worst {max(ratios):.3g} of the "
+              f"tolerance {tol} (per step {', '.join(f'{r:.3g}' for r in ratios)}); "
+              f"argmax equal on {2 * (n + 1) - flips}/{2 * (n + 1)} "
+              f"(every differing one inside the tolerance)")
+
+
+def lm_consistency(model, params, tokens, label: str) -> float:
+    """Prefill S tokens against prefill S-1 then one decode step, float32
+    caches, JAX's tolerance (its TestDecodeConsistency)."""
+    import torch
+    s = tokens.shape[1]
+    want, _ = model.prefill(params, {"tokens": tokens}, s, torch.float32)
+    _, cache = model.prefill(params, {"tokens": tokens[:, :-1]}, s, torch.float32)
+    got, _ = model.decode(params, cache, {"tokens": tokens[:, -1:], "pos": s - 1})
+    r = hold_lm(f"{label}: prefill {s} vs prefill {s - 1} + decode", got, want,
+                LM_BF16)
+    print(f"lm {label}: prefill {s} tokens == prefill {s - 1} + one decode step "
+          f"within {LM_BF16} (worst {r:.3g} of it)")
+    return r
+
+
+def lm_full_card(dev, model, card_p) -> list[str]:
+    """(b) B=4, a 640-token prompt (past the 512-token window: the ring
+    wraps), 32 new tokens through ``Engine.generate`` under
+    ``set_sync_debug_mode("error")`` (d), held to a manual greedy loop and
+    to the prefill-versus-decode consistency; (c) B=1, 2304 tokens (the
+    query-blocked path with sliding KV slices), the same consistency.
+    Returns the timing lines for phase 7."""
+    import torch
+
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(2)
+    b, s, n = 4, 640, 32
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=g,
+                            dtype=torch.int32).to(dev)
+    engine = Engine(model, card_p, s + n, ServeConfig(max_new_tokens=n))
+    engine.generate(prompts)                              # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = no_sync(lambda: engine.generate(prompts))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if out.shape != (b, s + n) or not torch.equal(out[:, :s], prompts):
+        fail(f"gemma3-1b FULL generate: output {tuple(out.shape)}")
+    if not bool(((out >= 0) & (out < cfg.vocab)).all()):
+        fail("gemma3-1b FULL generate: a token outside the vocabulary")
+    logits, cache = model.prefill(card_p, {"tokens": prompts}, s + n)
+    toks = [logits.argmax(-1)]
+    for i in range(n - 1):
+        logits, cache = model.decode(card_p, cache, {"tokens": toks[-1][:, None].to(
+            torch.int32), "pos": s + i})
+        toks.append(logits.argmax(-1))
+    manual = torch.stack(toks, 1).to(out.dtype)
+    if not torch.equal(manual, out[:, s:]):
+        fail("gemma3-1b FULL generate differs from a manual greedy loop")
+    print(f"lm gemma3-1b FULL (b, d) B=4 prompt 640 (ring of 512 wrapped) + "
+          f"32 new tokens: Engine.generate under set_sync_debug_mode('error') "
+          f"in {gen_s:.3f} s, == a manual prefill + argmax decode loop "
+          f"(128/128 tokens)")
+    lm_consistency(model, card_p, prompts[:, :s], "gemma3-1b FULL (b) B=4")
+    lm_consistency(model, card_p, torch.randint(
+        0, cfg.vocab, (1, 2304), generator=g, dtype=torch.int32).to(dev),
+        "gemma3-1b FULL (c) B=1, blocked path")
+    return lm_timing(dev, model, card_p, prompts, n)
+
+
+def lm_timing(dev, model, card_p, prompts, n: int) -> list[str]:
+    """Prefill tokens/s (median of 3) and decode ms per step (32 steps
+    after a prefill, host clock around the loop, synchronized), default
+    bfloat16 cache, and the device's busy share over 8 decode steps
+    (``torch.profiler``)."""
+    import torch
+    b, s = prompts.shape
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill(card_p, {"tokens": prompts}, s + n + 8)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    pre_s = statistics.median(times)
+    tok = prompts[:, -1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        model.decode(card_p, cache, {"tokens": tok, "pos": s + i})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+
+    def steps8():
+        for i in range(8):
+            model.decode(card_p, cache, {"tokens": tok, "pos": s + n + i % 8})
+    busy_ms = device_profile(steps8, "gemma3-1b FULL, 8 decode steps (B=4)",
+                             8 * step_ms / 1e3)
+    card = card_line()
+    return [f"timing lm gemma3-1b FULL prefill B={b} x {s} tokens: "
+            f"{b * s / pre_s:.1f} tokens/s ({pre_s * 1e3:.3f} ms, median of 3) "
+            f"[{card}]",
+            f"timing lm gemma3-1b FULL decode B={b} at position {s}: "
+            f"{step_ms:.3f} ms per step (mean of {n}), device busy "
+            f"{busy_ms / 8:.3f} ms per step "
+            f"({100 * busy_ms / (8 * step_ms):.1f}% busy) [{card}]"]
+
+
+def lm_main() -> int:
+    """The LM phase, in a process of its own with PyTorch's TF32 switches
+    as a process starts (the parent turns them off for its yardsticks)."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS, gemma3_1b
+    from repro_torch.models.registry import build_model
+    print(f"lm: TF32 switches as the process started: "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for arch in LM_ARCHS:
+        worst = [lm_smoke_vs_cpu(dev, arch, dt) for dt in ("float32", "bfloat16")]
+        print(f"lm {arch} SMOKE card vs CPU: prefill logits + cache, 4 decode "
+              f"steps; worst ratio to the tolerance float32 {worst[0]}, "
+              f"bfloat16 cache {worst[1]}")
+    print(f"lm ten SMOKE architectures: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model = build_model(gemma3_1b.FULL)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card_p = lm_tree_to(cpu_p, dev)
+    torch.cuda.synchronize()
+    print(f"lm gemma3-1b FULL: {model.n_params() / 1e9:.3f} B parameters, "
+          f"{26} layers, d_model {model.cfg.d_model}, vocab {model.cfg.vocab}; "
+          f"initialized on the CPU and copied in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_full_teacher_forced(dev, model, cpu_p, card_p)
+    print(f"lm gemma3-1b FULL (a): {time.perf_counter() - t0:.1f} s")
+    del cpu_p
+    t0 = time.perf_counter()
+    for line in lm_full_card(dev, model, card_p):
+        print(line)
+    print(f"lm gemma3-1b FULL (b-d) and timing: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def lm_phase() -> list[str]:
+    """Run :func:`lm_main` in a child process (``chip_smoke.py --lm``),
+    print its lines and return its timing lines for phase 7."""
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--lm"],
+                           capture_output=True, text=True, cwd=ROOT, timeout=900)
+    timing_lines = []
+    for line in child.stdout.splitlines():
+        if line.startswith("timing lm"):
+            timing_lines.append(line)
+        else:
+            print(line)
+    if child.returncode != 0:
+        fail(f"the LM phase exited {child.returncode}:\n{child.stderr[-4000:]}")
+    return timing_lines
+
+
+LM_CLI = (("gemma3-1b", ["--requests", "2", "--prompt-len", "16",
+                         "--new-tokens", "8"], 2),
+          ("deepseek-v2-236b", ["--smoke"], 4),
+          ("whisper-medium", ["--smoke"], 4),
+          ("qwen2-vl-7b", ["--smoke"], 4))
+
+
+def lm_cli(env) -> None:
+    """Phase 6, LM: ``python -m repro_torch.launch.serve --arch <lm>`` on
+    the card (gemma3-1b FULL; three SMOKE families), the four at once."""
+    runs = [(arch, n, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+         *flags], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=ROOT)) for arch, flags, n in LM_CLI]
+    try:
+        for arch, n, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            print(out, end="")
+            lines = [ln for ln in out.splitlines() if ln.startswith("req ")]
+            if proc.returncode != 0 or len(lines) != n or "device=" not in out:
+                fail(f"serve --arch {arch} exited {proc.returncode}:\n"
+                     f"{err[-4000:]}")
+    finally:
+        for _, _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 # ------------------------------------------------------- phase 4, engine
@@ -2350,6 +2834,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--compare-threshold"]:
         return compare_threshold(sys.argv[2:])
+    if sys.argv[1:2] == ["--lm"]:
+        return lm_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -2393,6 +2879,9 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             print(f"phase 4, {name}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lm_timing_lines = lm_phase()
+        print(f"phase 4, LM: {time.perf_counter() - t0:.1f} s")
         print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
         env = dict(os.environ, PYTHONPATH=str(SRC),      # phase 6
@@ -2418,6 +2907,7 @@ def main() -> int:
         if len(json.loads((Path(tmp) / "serve_cache.json").read_text())[
                 "entries"]) != 1:
             fail("serve --tune measured/cached: want one cache entry")
+        lm_cli(env)
     quick = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quickstart"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
@@ -2438,6 +2928,8 @@ def main() -> int:
                              card)
     timing_engine(dev, csnn_paper.FULL, params, serve_plan, stream, splans,
                   card)
+    for line in lm_timing_lines:
+        print(line)
     for k in kernels:  # a record at another shape counts its kernel's runs
         name = k["name"].split()[0]
         k.update(launches=launches[name], max_abs_err=max_err[name])

@@ -46,7 +46,9 @@ IGNORE_RE = re.compile(r"#\s*analysis:\s*ignore\[([a-zA-Z0-9,\- ]+)\]")
 
 #: (path suffix, qualified name) of the hot roots: the forward's chunk
 #: step and the scheduler's batched runners under it, the sharded
-#: forward, and the engine's chunk step and batch inference
+#: forward, the engine's chunk step and batch inference, and the LM
+#: decode loop (the decoders' and whisper's decode step, and
+#: ``Engine.generate``)
 HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("core/csnn.py", "snn_step_chunk"),
     ("core/csnn.py", "snn_apply_sharded"),
@@ -54,6 +56,9 @@ HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("core/scheduler.py", "run_conv_layer_batched_chunk_streamed"),
     ("serve/csnn_engine.py", "CSNNEngine._step"),
     ("serve/csnn_engine.py", "CSNNEngine._infer"),
+    ("models/transformer.py", "decode_step"),
+    ("models/encdec.py", "decode_step"),
+    ("serve/engine.py", "Engine.generate"),
 })
 
 # Calls that are fine as defaults: immutable factories, plus

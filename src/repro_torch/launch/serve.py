@@ -35,6 +35,20 @@ one by one to ``CSNNEngine``.  The first call (``warmup`` for the
 engine) is timed apart: on the GPU it includes building the kernels.
 ``--verbose`` prints the plan and, for image requests, the per-layer
 event counts.
+
+LM serving (the ten registry architectures of ``repro_torch.configs``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+      --requests 2 --prompt-len 16 --new-tokens 8       # FULL, on the GPU
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --smoke --device cpu --requests 2 --new-tokens 4  # SMOKE, on the CPU
+
+builds the model with weights from a seed (a CPU generator, so the CPU and
+the GPU serve the same weights), draws random prompts, runs
+``Engine.generate`` (prefill, then greedy decoding, or temperature
+sampling with ``--temperature``) and prints one ``req N: [tokens]`` line
+per request (the new tokens) and a timing line.
 """
 import argparse
 import statistics
@@ -170,14 +184,85 @@ def serve_csnn(args) -> int:
     return 0
 
 
+def lm_inputs(cfg, requests: int, prompt_len: int, generator):
+    """Random prompt tokens and the family's extra inputs (the VLM's
+    vision prefix, the encoder-decoder's frames), drawn on the CPU from
+    ``generator``."""
+    import torch
+    prompts = torch.randint(0, cfg.vocab, (requests, prompt_len),
+                            generator=generator, dtype=torch.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision_embeds"] = 0.02 * torch.randn(
+            (requests, cfg.n_vision_tokens, cfg.d_model), generator=generator)
+    if cfg.family == "encdec":
+        extra["frames"] = 0.02 * torch.randn(
+            (requests, cfg.enc_frames, cfg.d_model), generator=generator)
+    return prompts, extra
+
+
+def serve_lm(args, params=None, prompts=None, extra=None) -> int:
+    """The LM branch: ``Engine.generate`` over one batch of requests.
+    ``params`` / ``prompts`` / ``extra`` replace the seeded draws (tests
+    pass the JAX package's through numpy)."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    device = torch.device(args.device)
+    mod = ARCHS[args.arch]
+    cfg = mod.SMOKE if args.smoke else mod.FULL
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    if params is None:
+        params = model.init_params(torch.Generator().manual_seed(0), device)
+    if prompts is None:
+        prompts, extra = lm_inputs(cfg, args.requests, args.prompt_len,
+                                   torch.Generator().manual_seed(1))
+        prompts = prompts.to(device)
+        extra = {k: v.to(device) for k, v in extra.items()}
+    max_seq = args.prompt_len + args.new_tokens + 8
+    if cfg.family == "vlm":
+        max_seq += cfg.n_vision_tokens
+    engine = Engine(model, params, max_seq=max_seq,
+                    cfg=ServeConfig(max_new_tokens=args.new_tokens,
+                                    temperature=args.temperature))
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, torch.Generator(device=device).manual_seed(3),
+                          extra=extra)
+    rows = out[:, args.prompt_len:].tolist()
+    dt = time.perf_counter() - t0
+    for i, row in enumerate(rows):
+        print(f"req {i}: {row}")
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"generate: {dt:.2f} s for {args.requests} x {args.new_tokens} "
+          f"tokens after a {args.prompt_len}-token prompt (first call; "
+          f"weights {init_s:.1f} s) ({cfg.name}, "
+          f"{model.n_params() / 1e6:.1f} M params, device={where})")
+    return 0
+
+
 def main(argv=None):
+    from repro_torch.configs import ARCHS, CSNN_ARCHS
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="csnn-paper",
-                    choices=("csnn-paper", "csnn-wide"))
+    ap.add_argument("--arch", default="csnn-paper", choices=tuple(ARCHS),
+                    help="a CSNN (event-driven serving) or one of the ten "
+                         "LM architectures (Engine.generate)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="LM prompt tokens per request")
+    ap.add_argument("--new-tokens", type=int, default=16,
+                    help="LM tokens generated per request")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="LM sampling temperature (0 = greedy)")
     ap.add_argument("--capacity", type=int, default=256,
-                    help="AEQ depth per queue")
+                    help="AEQ depth per queue (CSNN only)")
     ap.add_argument("--channel-block", type=int, default=8,
                     help="output channels per MemPot tile")
     ap.add_argument("--event-par", type=int, default=-1,
@@ -215,7 +300,10 @@ def main(argv=None):
                     help="engine flush deadline for partial batches")
     ap.add_argument("--verbose", action="store_true",
                     help="print the NetworkPlan and per-layer event counts")
-    return serve_csnn(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    if args.arch in CSNN_ARCHS:
+        return serve_csnn(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,2 @@
-"""Serving front ends of the port: the CSNN engine (``csnn_engine``)."""
+"""Serving front ends of the port: the CSNN engine (``csnn_engine``) and
+the LM engine (``engine``)."""

@@ -46,6 +46,33 @@ def test_bool_round_trip_and_copy():
     np.testing.assert_array_equal(params_to_numpy(tp)["m"]["x"], [False, False])
 
 
+@pytest.mark.parametrize("arch", ["gemma3-1b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("dtype", [np.float32, np.int8])
+def test_lm_params_round_trip(arch, dtype):
+    """A SMOKE LM tree (``groups`` is a list of tuples of dicts) crosses
+    whole: containers, keys, shapes, dtypes and values kept both ways."""
+    from repro.configs import ARCHS
+    from repro.models.registry import build_model
+    rng = np.random.default_rng(3)
+    shapes = jax.eval_shape(
+        lambda: build_model(ARCHS[arch].SMOKE).init_params(jax.random.PRNGKey(0)))
+    np_params = jax.tree.map(
+        lambda s: (rng.normal(size=s.shape) * 50).astype(dtype), shapes)
+    tp = params_from_numpy(np_params, "cpu")
+    assert isinstance(tp["groups"], list)
+    assert all(isinstance(g, tuple) for g in tp["groups"])
+    is_t = lambda x: isinstance(x, torch.Tensor)  # noqa: E731
+    assert jax.tree.structure(tp, is_leaf=is_t) == jax.tree.structure(np_params)
+    for t, w in zip(jax.tree.leaves(tp, is_leaf=is_t), jax.tree.leaves(np_params)):
+        assert t.dtype == getattr(torch, np.dtype(dtype).name)
+        np.testing.assert_array_equal(t.numpy(), w)
+    back = params_to_numpy(tp)
+    assert jax.tree.structure(back) == jax.tree.structure(np_params)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(np_params)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -59,6 +86,13 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    port = ROOT / "src" / "repro_torch"
+    for mod in ("models/common.py", "models/attention.py", "models/ffn.py",
+                "models/linear_attn.py", "models/rwkv.py", "models/ssm.py",
+                "models/transformer.py", "models/encdec.py",
+                "models/registry.py", "serve/engine.py", "configs/base.py",
+                "configs/gemma3_1b.py", "configs/deepseek_v2.py"):
+        assert port / mod in files, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -561,3 +561,54 @@ def test_quantize_on_card_equals_cpu(cuda, bits):
     vals = torch.cat([x, (k + 0.5) * torch.tensor(scale)])
     assert torch.equal(quantize(vals.to(cuda), spec).cpu(),
                        quantize(vals, spec))
+
+
+LM_IDS = ("zamba2-1.2b", "rwkv6-1.6b", "stablelm-3b", "granite-34b",
+          "phi3-medium-14b", "gemma3-1b", "qwen2-vl-7b", "whisper-medium",
+          "llama4-maverick-400b-a17b", "deepseek-v2-236b")
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_smoke_card_equals_cpu(cuda, arch, dtype):
+    """Each SMOKE LM on the card against the CPU plain path: prefill
+    logits and cache, 4 decode steps (chip_smoke's LM check and
+    tolerances)."""
+    _chip_smoke().lm_smoke_vs_cpu(cuda, arch, dtype)
+
+
+@pytest.mark.gpu
+def test_lm_generate_without_host_sync(cuda):
+    """``Engine.generate`` on gemma3 SMOKE (a prompt past its window)
+    makes no synchronizing CUDA call and equals a manual greedy loop."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    model = build_model(gemma3_1b.SMOKE)
+    params = model.init_params(torch.Generator().manual_seed(0), cuda)
+    prompts = torch.randint(0, 512, (3, 40), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(1)).to(cuda)
+    engine = Engine(model, params, 52, ServeConfig(max_new_tokens=12))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = engine.generate(prompts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    logits, cache = model.prefill(params, {"tokens": prompts}, 52)
+    toks = [logits.argmax(-1)]
+    for i in range(11):
+        logits, cache = model.decode(params, cache, {
+            "tokens": toks[-1][:, None].to(torch.int32), "pos": 40 + i})
+        toks.append(logits.argmax(-1))
+    assert torch.equal(out[:, 40:], torch.stack(toks, 1).to(out.dtype))

@@ -73,6 +73,18 @@ CASES = [
      "class CSNNEngine:\n    def _step(self, x):\n"
      "        return x.to(x.dtype)\n"
      "    def _read(self, x):\n        return x.tolist()\n"),
+    ("lint-host-sync-in-hot-path", "serve/engine.py",
+     "class Engine:\n    def generate(self, p):\n"
+     "        return self._sample(p)\n"
+     "    def _sample(self, logits):\n        return logits.argmax().item()\n",
+     "class Engine:\n    def generate(self, p):\n"
+     "        return self._sample(p)\n"
+     "    def _sample(self, logits):\n        return logits.argmax()\n"),
+    ("lint-host-sync-in-hot-path", "models/transformer.py",
+     "def decode_step(params, cache, batch, cfg):\n"
+     "    return batch['tokens'].cpu()\n",
+     "def decode_step(params, cache, batch, cfg):\n"
+     "    return batch['tokens']\n"),
     ("lint-global-rng", "data/noise.py",
      "import torch\ndef f(x):\n    return x.normal_()\n",
      "import torch\ndef f(x, g):\n    return x.normal_(generator=g)\n"),
@@ -128,6 +140,27 @@ def test_hot_units_follow_the_call_graph():
     assert "threshold_pool_cuda_emit" in hot[
         "src/repro_torch/kernels/threshold_pool/kernel.py"]
     assert not hot["src/repro_torch/tune/measure.py"]
+
+
+def test_lm_decode_roots_reach_the_blocks():
+    """The LM decode loop's roots reach every block a decode step runs."""
+    import ast
+    trees = {str(p.relative_to(ROOT)): ast.parse(p.read_text())
+             for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))}
+    hot = tlint.hot_units(trees)
+    models = "src/repro_torch/models/"
+    assert {"Engine.generate", "Engine._sample"} <= hot[
+        "src/repro_torch/serve/engine.py"]
+    assert {"decode_step", "_decode_layer", "embed_tokens", "_ffn"} <= hot[
+        models + "transformer.py"]
+    assert {"decode_step", "_decoder_layer"} <= hot[models + "encdec.py"]
+    assert {"gqa_decode", "mla_decode", "cross_forward", "_gqa_attend"} <= hot[
+        models + "attention.py"]
+    assert {"moe_forward", "mlp_forward", "top_k_stable"} <= hot[models + "ffn.py"]
+    assert "single_step" in hot[models + "linear_attn.py"]
+    assert {"time_mix_decode", "channel_mix_decode"} <= hot[models + "rwkv.py"]
+    assert "mamba2_decode" in hot[models + "ssm.py"]
+    assert "prefill" not in hot[models + "transformer.py"]
 
 
 def test_port_tree_is_clean():
