@@ -117,7 +117,25 @@ Phases (any failure exits non-zero before the result line):
    (d), equal to a manual greedy loop, and prefill of 640 tokens against
    prefill of 639 plus one decode step (JAX's rtol 2e-2, atol 2e-3); (c)
    B=1, 2304 tokens (the query-blocked path with sliding KV slices), the
-   same consistency.  No kernel is on the LM path;
+   same consistency; then the LM training phase (``chip_smoke.py
+   --lm-train``, a child process that prints PyTorch's TF32 switches as it
+   starts): (a) one gemma3-1b FULL training step at B=2 x 64
+   (``TokenStream``), card against the CPU in float32 with matmul TF32
+   off, the loss, every gradient leaf and the global norm held to the
+   tolerances stated at ``TRAIN_LOSS_RTOL``, then one AdamW update (the
+   moments, and each parameter's change outside the gradients' tolerance
+   band); (b) ``train.loop.run`` at B=4 x 1024 with a checkpoint after
+   step 3 in a temporary directory, ``restore`` onto a ``meta`` template
+   equal to the in-memory state bit for bit, steps 4-5 through ``run``
+   from the checkpoint against steps 4-5 from the in-memory state, the
+   loss of every step printed and the last no higher than the first; (d)
+   ms per step (median of the 5), tokens/s, the device's busy share over
+   one more step (``torch.profiler``), ``max_memory_allocated`` over it,
+   and the memory of the loss and gradients with and without each
+   cross-entropy chunk recomputed; then, with the FULL state freed, (c)
+   one training step of each of the ten SMOKE architectures, card against
+   CPU: the loss and the gradient norm.  No kernel is on the LM path, nor
+   on its training path;
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
    kernels its plan's layers resolve to and no other, each exactly once
@@ -139,7 +157,9 @@ Phases (any failure exits non-zero before the result line):
    100`` and print their lines; ``python -m repro_torch.launch.serve
    --arch gemma3-1b --requests 2 --prompt-len 16 --new-tokens 8`` (FULL)
    and ``--smoke`` runs of deepseek-v2-236b, whisper-medium and
-   qwen2-vl-7b, the four at once;
+   qwen2-vl-7b, with ``python -m repro_torch.launch.train --arch gemma3-1b
+   --steps 3 --batch 4 --seq 1024`` (FULL) and ``--smoke --steps 20`` runs
+   of stablelm-3b, deepseek-v2-236b and rwkv6-1.6b, the eight at once;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -159,8 +179,9 @@ Phases (any failure exits non-zero before the result line):
    breakdown of one continuous engine pass, per chunk; then the LM
    phase's timings of gemma3-1b FULL at B=4, a 640-token prompt and the
    default bfloat16 cache: prefill tokens/s, decode ms per step and the
-   device's busy share over 8 decode steps, beside the card's name and
-   power limit.
+   device's busy share over 8 decode steps; and the training phase's
+   gemma3-1b FULL ms per step, tokens/s, busy share and peak memory, beside
+   the card's name and power limit.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -169,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1841,28 +1863,399 @@ LM_CLI = (("gemma3-1b", ["--requests", "2", "--prompt-len", "16",
           ("deepseek-v2-236b", ["--smoke"], 4),
           ("whisper-medium", ["--smoke"], 4),
           ("qwen2-vl-7b", ["--smoke"], 4))
+# python -m repro_torch.launch.train: (arch, flags, logged steps); the loop
+# logs the first step and every 10th
+TRAIN_CLI = (("gemma3-1b", ["--steps", "3", "--batch", "4", "--seq", "1024"], 1),
+             ("stablelm-3b", ["--smoke", "--steps", "20"], 3),
+             ("deepseek-v2-236b", ["--smoke", "--steps", "20"], 3),
+             ("rwkv6-1.6b", ["--smoke", "--steps", "20"], 3))
 
 
 def lm_cli(env) -> None:
     """Phase 6, LM: ``python -m repro_torch.launch.serve --arch <lm>`` on
-    the card (gemma3-1b FULL; three SMOKE families), the four at once."""
-    runs = [(arch, n, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         *flags], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env, cwd=ROOT)) for arch, flags, n in LM_CLI]
+    the card (gemma3-1b FULL; three SMOKE families) and ``python -m
+    repro_torch.launch.train --arch <lm>`` (gemma3-1b FULL, 3 steps at
+    B=4 x 1024; 20 SMOKE steps of stablelm-3b, deepseek-v2-236b and
+    rwkv6-1.6b), the eight at once."""
+    def start(module, arch, flags):
+        return subprocess.Popen(
+            [sys.executable, "-m", module, "--arch", arch, *flags],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=ROOT)
+
+    runs = [("serve", arch, n, start("repro_torch.launch.serve", arch, flags))
+            for arch, flags, n in LM_CLI]
+    runs += [("train", arch, n, start("repro_torch.launch.train", arch, flags))
+             for arch, flags, n in TRAIN_CLI]
     try:
-        for arch, n, proc in runs:
+        for kind, arch, n, proc in runs:
             out, err = proc.communicate(timeout=600)
             print(out, end="")
-            lines = [ln for ln in out.splitlines() if ln.startswith("req ")]
-            if proc.returncode != 0 or len(lines) != n or "device=" not in out:
-                fail(f"serve --arch {arch} exited {proc.returncode}:\n"
+            if kind == "serve":
+                ok = (len([ln for ln in out.splitlines() if ln.startswith("req ")])
+                      == n and "device=" in out)
+            else:
+                steps = [ln.split() for ln in out.splitlines()
+                         if ln.startswith("  step ")]
+                ok = (len(steps) == n and "M params" in out.splitlines()[0]
+                      and all(math.isfinite(float(t[3])) for t in steps))
+            if proc.returncode != 0 or not ok:
+                fail(f"{kind} --arch {arch} exited {proc.returncode}:\n"
                      f"{err[-4000:]}")
     finally:
-        for _, _, proc in runs:
+        for *_, proc in runs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+# ------------------------------------------------- phase 4, LM training
+# Stated before the first card run of the training phase (PERF.md §6,
+# PR 23).  gemma3-1b FULL, one training step at B=2 x 64, card against the
+# CPU in float32 with matmul TF32 off: the loss and ce at rtol 1e-5, each
+# gradient leaf within 1e-3 of its largest CPU entry (the tests' bound
+# against JAX), the global gradient norm at rtol 1e-4; one AdamW update:
+# the moments as the gradient (nu, a square, at twice the bound) and each
+# parameter's change within 1e-3 of the leaf's largest CPU change wherever
+# the CPU gradient lies outside its own tolerance band (inside it the sign
+# of the update may flip: counted, not held).  The ten SMOKE models, one
+# step: the loss and gradient norm at the LM phase's float32 rtol (1e-4,
+# the sharp models 1e-3).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_ATOL = 1e-3
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 5
+TRAIN_CKPT_STEP = 3
+
+
+def leaf_ratio(got, want, atol: float, where=None) -> float:
+    """max |got - want| / (atol x max |want|) over ``where`` (all entries
+    by default); 0 where both are 0 everywhere.  Computed in float32 on
+    ``got``'s device (``want`` is copied there): a 1 B-entry tree is too
+    large to widen to float64 on the host in time."""
+    import torch
+    w = want.to(got.device)
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    err = (got - w).abs()
+    if where is not None:
+        err = torch.where(where.to(got.device), err, 0.0)
+    err = float(err.max()) if err.numel() else 0.0
+    if scale == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / (atol * scale)
+
+
+def hold_leaves(name: str, got, want, atol: float) -> float:
+    """Every leaf of two trees within ``atol`` x its largest ``want`` entry;
+    returns the worst :func:`leaf_ratio`."""
+    from repro_torch.train.optimizer import tree_leaves
+    g, w = tree_leaves(got), tree_leaves(want)
+    if len(g) != len(w):
+        fail(f"{name}: {len(g)} leaves against {len(w)}")
+    worst = 0.0
+    for a, b in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{name}: {a.dtype}{tuple(a.shape)} against "
+                 f"{b.dtype}{tuple(b.shape)}")
+        worst = max(worst, leaf_ratio(a, b, atol))
+    if worst > 1.0:
+        fail(f"{name}: {worst:.3g} x the tolerance ({atol} of each leaf's "
+             f"largest entry)")
+    return worst
+
+
+def hold_rel(name: str, got, want, rtol: float) -> float:
+    r = abs(float(got) - float(want)) / (rtol * abs(float(want)))
+    if r > 1.0:
+        fail(f"{name}: {float(got)!r} against {float(want)!r}, {r:.3g} x "
+             f"rtol {rtol}")
+    return r
+
+
+def train_batch(cfg, b: int, s: int, step: int, dev):
+    from repro_torch.data.synthetic import ShardedBatcher, TokenStream
+    return ShardedBatcher(TokenStream(cfg.vocab, seed=0), b, s, device=dev)(step)
+
+
+def train_full_card_vs_cpu(dev, model, cpu_p, card_p) -> None:
+    """(a) gemma3-1b FULL, one step at B=2 x 64 (``TokenStream``), card
+    against the CPU, float32 with matmul TF32 off: the loss, every
+    gradient leaf, the global norm; then one AdamW update."""
+    import torch
+
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    (cl, cm), cg = value_and_grad(model, cpu_p, train_batch(model.cfg, 2, 64, 0, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (gl, gm), gg = value_and_grad(model, card_p, train_batch(model.cfg, 2, 64, 0, dev))
+    r_loss = max(hold_rel("train gemma3-1b FULL (a) loss", gl, cl, TRAIN_LOSS_RTOL),
+                 hold_rel("train gemma3-1b FULL (a) ce", gm["ce"], cm["ce"],
+                          TRAIN_LOSS_RTOL))
+    r_grad = hold_leaves("train gemma3-1b FULL (a) gradients", gg, cg,
+                         TRAIN_GRAD_ATOL)
+    cn, gn = opt.global_norm(cg), opt.global_norm(gg)
+    r_norm = hold_rel("train gemma3-1b FULL (a) global norm", gn, cn,
+                      TRAIN_NORM_RTOL)
+    n_leaves = len(opt.tree_leaves(cg))
+    check_s = time.perf_counter() - t0
+    print(f"train gemma3-1b FULL (a) one step B=2 x 64, card vs CPU (float32, "
+          f"matmul TF32 off): loss {float(gl):.6f} vs {float(cl):.6f} "
+          f"({r_loss:.3g} of rtol {TRAIN_LOSS_RTOL}); {n_leaves} gradient "
+          f"leaves, worst {r_grad:.3g} of {TRAIN_GRAD_ATOL} x the leaf's "
+          f"largest entry; global norm {float(gn):.6f} vs {float(cn):.6f} "
+          f"({r_norm:.3g} of rtol {TRAIN_NORM_RTOL}); the CPU's step "
+          f"{cpu_s:.1f} s, the card's and the checks {check_s:.1f} s")
+    cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    t0 = time.perf_counter()
+    c1 = opt.adamw_update(opt.init_state(cpu_p, cfg), cg, cfg)
+    cpu_update_s = time.perf_counter() - t0
+    g1 = opt.adamw_update(opt.init_state(card_p, cfg), gg, cfg)
+    r_mu = hold_leaves("train gemma3-1b FULL (a) AdamW mu", g1.mu, c1.mu,
+                       TRAIN_GRAD_ATOL)
+    r_nu = hold_leaves("train gemma3-1b FULL (a) AdamW nu", g1.nu, c1.nu,
+                       2 * TRAIN_GRAD_ATOL)
+    worst, flips, band_n, total = 0.0, 0, 0, 0
+    for p0c, p1c, p0g, p1g, g in zip(*(opt.tree_leaves(t) for t in (
+            cpu_p, c1.params, card_p, g1.params, cg))):
+        dc, dg = (p1c - p0c).to(dev), p1g - p0g
+        g = g.to(dev)
+        outside = g.abs() > TRAIN_GRAD_ATOL * g.abs().max()
+        worst = max(worst, leaf_ratio(dg, dc, TRAIN_GRAD_ATOL, outside))
+        flips += int(((dg.sign() != dc.sign()) & ~outside).sum())
+        band_n += int((~outside).sum())
+        total += dc.numel()
+    if worst > 1.0:
+        fail(f"train gemma3-1b FULL (a) AdamW parameter change: {worst:.3g} x "
+             f"the tolerance")
+    print(f"train gemma3-1b FULL (a) one AdamW update (lr 1e-3), card vs CPU: "
+          f"mu worst {r_mu:.3g}, nu {r_nu:.3g} of their bounds; parameter "
+          f"change worst {worst:.3g} of {TRAIN_GRAD_ATOL} x the leaf's largest "
+          f"change outside the gradients' tolerance band; inside it "
+          f"({band_n} of {total} entries) {flips} changes of other sign; "
+          f"the CPU's update {cpu_update_s:.1f} s")
+
+
+def states_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.train.optimizer import tree_leaves
+    la = tree_leaves([a.params, a.mu, a.nu])
+    lb = tree_leaves([b.params, b.mu, b.nu])
+    return a.step == b.step and len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_full_run(dev, model, tmp: Path) -> list[str]:
+    """(b) ``run`` at B=4 x 1024 with a checkpoint after step 3 in a
+    temporary directory; ``restore`` against the in-memory state (bit for
+    bit); steps 4-5 through ``run`` from the checkpoint against steps 4-5
+    from the in-memory state (the uninterrupted chain); the loss of every
+    step printed, the last no higher than the first.  (d) ms per step
+    (median of the 5, synchronized), tokens/s, the device's busy share
+    over one step and the peak memory.  Returns the timing lines."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models import common
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, make_train_step, run, value_and_grad
+    cfg = model.cfg
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    stamps = []
+
+    def data(step):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return train_batch(cfg, TRAIN_B, TRAIN_S, step, dev)
+
+    ckdir = tmp / "train_ckpt"
+    free = shutil.disk_usage(tmp).free
+    t0 = time.perf_counter()
+    state3, hist = run(model, data, LoopConfig(TRAIN_CKPT_STEP, TRAIN_CKPT_STEP,
+                                               str(ckdir), 1), ocfg,
+                       torch.Generator().manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    run3_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    files = list((ckdir / f"ckpt_{TRAIN_CKPT_STEP:09d}").iterdir())
+    ck_bytes = sum(f.stat().st_size for f in files)
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(opt.abstract_state(
+        model.abstract_params(torch.float32), ocfg), ckdir, device=dev)
+    restore_s = time.perf_counter() - t0
+    if at != TRAIN_CKPT_STEP or not states_equal(restored, state3):
+        fail("train gemma3-1b FULL (b): the restored state differs from the "
+             "in-memory state after step 3")
+    del restored
+    print(f"train gemma3-1b FULL (b) run to step {TRAIN_CKPT_STEP} at B={TRAIN_B} "
+          f"x {TRAIN_S} ({run3_s:.1f} s, parameters drawn on the CPU and the "
+          f"checkpoint included): checkpoint of {len(files)} files, "
+          f"{ck_bytes / 1e9:.2f} GB ({free / 1e9:.0f} GB free before); "
+          f"restore onto a meta template in {restore_s:.1f} s == the in-memory "
+          f"state bit for bit")
+    resumed, rhist = run(model, lambda s: train_batch(cfg, TRAIN_B, TRAIN_S, s, dev),
+                         LoopConfig(TRAIN_STEPS, TRAIN_CKPT_STEP, str(ckdir), 1),
+                         ocfg, torch.Generator().manual_seed(0), device=dev)
+    step_fn = make_train_step(model, ocfg)
+    state, rlosses = state3, []
+    del state3
+    for step in range(TRAIN_CKPT_STEP, TRAIN_STEPS):
+        batch = data(step)
+        state, m = step_fn(state, batch)
+        rlosses.append(m["loss"].item())
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    step_s += [b - a for a, b in zip(stamps[-3:], stamps[-2:])]
+    losses += rlosses
+    bitwise = states_equal(resumed, state)
+    for i, (a, b) in enumerate(zip([h["loss"] for h in rhist], rlosses)):
+        hold_rel(f"train gemma3-1b FULL (b) step {TRAIN_CKPT_STEP + i + 1} loss "
+                 f"resumed vs uninterrupted", a, b, TRAIN_LOSS_RTOL)
+    r_mu = hold_leaves("train (b) mu resumed vs uninterrupted", resumed.mu,
+                       state.mu, TRAIN_GRAD_ATOL)
+    r_nu = hold_leaves("train (b) nu resumed vs uninterrupted", resumed.nu,
+                       state.nu, 2 * TRAIN_GRAD_ATOL)
+    r_p = hold_leaves("train (b) parameters resumed vs uninterrupted",
+                      resumed.params, state.params, TRAIN_GRAD_ATOL)
+    print(f"train gemma3-1b FULL (b) loss per step: "
+          f"{', '.join(f'{x:.6f}' for x in losses)}")
+    if not losses[-1] <= losses[0]:
+        fail(f"train gemma3-1b FULL (b): the loss rose from {losses[0]} to "
+             f"{losses[-1]}")
+    print(f"train gemma3-1b FULL (b) steps {TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS} "
+          f"resumed from the checkpoint vs from the in-memory state: "
+          f"{'bit for bit equal' if bitwise else 'not bitwise equal'}; losses "
+          f"within rtol {TRAIN_LOSS_RTOL}, mu {r_mu:.3g}, nu {r_nu:.3g}, "
+          f"parameters {r_p:.3g} of their bounds")
+    del resumed
+    ms = statistics.median(step_s) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    busy_ms = device_profile(lambda: step_fn(state, data(TRAIN_STEPS)),
+                             "gemma3-1b FULL, one training step (B=4 x 1024)",
+                             ms / 1e3)
+    peak_step = torch.cuda.max_memory_allocated()
+    peaks = {}
+    params = state.params
+    del state
+    for label in ("with", "without"):
+        saved = common.checkpoint
+        if label == "without":
+            common.checkpoint = lambda fn, *a, **k: fn(*a)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            value_and_grad(model, params, train_batch(cfg, TRAIN_B, TRAIN_S, 0, dev))
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        finally:
+            common.checkpoint = saved
+    card = card_line()
+    return [f"timing lm train gemma3-1b FULL B={TRAIN_B} x {TRAIN_S}: "
+            f"{ms:.1f} ms per step (median of {len(step_s)}: "
+            f"{', '.join(f'{1e3 * x:.1f}' for x in step_s)}; the first warms "
+            f"up, the third writes the checkpoint), "
+            f"{TRAIN_B * TRAIN_S / (ms / 1e3):.1f} tokens/s, device busy "
+            f"{busy_ms:.1f} ms of one step ({100 * busy_ms / ms:.1f}%) [{card}]",
+            f"timing lm train gemma3-1b FULL memory: max_memory_allocated "
+            f"{peak_step / 1e9:.2f} GB over one step (state, gradients, "
+            f"update); "
+            f"loss + gradients alone above the parameters: {peaks['with']:.2f} GB "
+            f"with each cross-entropy chunk recomputed, {peaks['without']:.2f} GB "
+            f"without [{card}]"]
+
+
+def train_smoke_vs_cpu(dev, arch: str) -> float:
+    """(c) One SMOKE architecture, one training step card against CPU in
+    float32 from the same parameters and ``TokenStream`` batch (the
+    family's extra inputs from ``lm_inputs``): the loss and the gradient
+    norm.  Returns the worst ratio to the bound."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import value_and_grad
+    cfg = LM_ARCHS[arch].SMOKE
+    model = build_model(cfg)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card_p = lm_tree_to(cpu_p, dev)
+    batch = train_batch(cfg, 2, 24, 0, "cpu")
+    _, extra = lm_inputs(cfg, 2, 24, torch.Generator().manual_seed(1))
+    batch.update(extra)
+    rtol = LM_F32_SHARP["rtol"] if arch in LM_SHARP else LM_F32["rtol"]
+    (cl, _), cg = value_and_grad(model, cpu_p, batch)
+    (gl, _), gg = value_and_grad(model, card_p, lm_tree_to(batch, dev))
+    return max(hold_rel(f"train {arch} SMOKE loss", gl, cl, rtol),
+               hold_rel(f"train {arch} SMOKE gradient norm", opt.global_norm(gg),
+                        opt.global_norm(cg), rtol))
+
+
+def lm_train_main() -> int:
+    """The LM training phase, in a process of its own with PyTorch's TF32
+    switches as a process starts."""
+    import torch
+
+    from repro_torch.configs import LM_ARCHS, gemma3_1b
+    from repro_torch.models.registry import build_model
+    print(f"train: TF32 switches as the process started: "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    model = build_model(gemma3_1b.FULL)
+    cpu_p = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    card_p = lm_tree_to(cpu_p, dev)
+    torch.cuda.synchronize()
+    print(f"train gemma3-1b FULL: {model.n_params() / 1e9:.4f} B float32 "
+          f"parameters from a CPU generator (seed 0), copied in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_full_card_vs_cpu(dev, model, cpu_p, card_p)
+    del cpu_p, card_p
+    print(f"train gemma3-1b FULL (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        timing_lines = train_full_run(dev, model, Path(tmp))
+    print(f"train gemma3-1b FULL (b, d): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    worst = {arch: train_smoke_vs_cpu(dev, arch) for arch in LM_ARCHS}
+    print(f"train (c) ten SMOKE architectures, one step card vs CPU (float32): "
+          f"loss and gradient norm, worst ratio to the bound "
+          + ", ".join(f"{a} {r:.3g}" for a, r in worst.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    for line in timing_lines:
+        print(line)
+    return 0
+
+
+def lm_train_phase() -> list[str]:
+    """Run :func:`lm_train_main` in a child process (``chip_smoke.py
+    --lm-train``), print its lines and return its timing lines."""
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--lm-train"], capture_output=True, text=True,
+                           cwd=ROOT, timeout=900)
+    timing_lines = []
+    for line in child.stdout.splitlines():
+        if line.startswith("timing lm train"):
+            timing_lines.append(line)
+        else:
+            print(line)
+    if child.returncode != 0:
+        fail(f"the LM training phase exited {child.returncode}:\n"
+             f"{child.stderr[-4000:]}")
+    return timing_lines
 
 
 # ------------------------------------------------------- phase 4, engine
@@ -2836,6 +3229,8 @@ def main() -> int:
         return compare_threshold(sys.argv[2:])
     if sys.argv[1:2] == ["--lm"]:
         return lm_main()
+    if sys.argv[1:2] == ["--lm-train"]:
+        return lm_train_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -2882,6 +3277,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lm_timing_lines = lm_phase()
         print(f"phase 4, LM: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lm_timing_lines += lm_train_phase()
+        print(f"phase 4, LM training: {time.perf_counter() - t0:.1f} s")
         print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
         env = dict(os.environ, PYTHONPATH=str(SRC),      # phase 6

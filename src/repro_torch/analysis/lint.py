@@ -46,9 +46,10 @@ IGNORE_RE = re.compile(r"#\s*analysis:\s*ignore\[([a-zA-Z0-9,\- ]+)\]")
 
 #: (path suffix, qualified name) of the hot roots: the forward's chunk
 #: step and the scheduler's batched runners under it, the sharded
-#: forward, the engine's chunk step and batch inference, and the LM
+#: forward, the engine's chunk step and batch inference, the LM
 #: decode loop (the decoders' and whisper's decode step, and
-#: ``Engine.generate``)
+#: ``Engine.generate``), and the LM training loop (its step, the loss
+#: under it, and ``run``, which reads the loss at log steps only)
 HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("core/csnn.py", "snn_step_chunk"),
     ("core/csnn.py", "snn_apply_sharded"),
@@ -59,6 +60,10 @@ HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("models/transformer.py", "decode_step"),
     ("models/encdec.py", "decode_step"),
     ("serve/engine.py", "Engine.generate"),
+    ("models/transformer.py", "loss_fn"),
+    ("models/encdec.py", "loss_fn"),
+    ("train/loop.py", "make_train_step"),
+    ("train/loop.py", "run"),
 })
 
 # Calls that are fine as defaults: immutable factories, plus

@@ -29,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .common import ParamSpec, apply_mrope, apply_rope, causal_mask, rms_norm, sliding_mask
 
@@ -97,6 +98,18 @@ Q_BLOCK = 1024
 _BLOCKED_MIN_SEQ = 2048  # below this the plain (S, S) path is cheaper
 
 
+def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  start_q: int, start_k: int, window: Optional[int]
+                  ) -> torch.Tensor:
+    """One query block of :func:`_attend_qblocks` against its KV slice."""
+    qi = start_q + torch.arange(q.shape[1], device=q.device)[:, None]
+    kj = start_k + torch.arange(k.shape[1], device=q.device)[None, :]
+    m = kj <= qi
+    if window is not None:
+        m &= kj > qi - window
+    return _gqa_attend(q, k, v, m[None].expand(q.shape[0], *m.shape))
+
+
 def _attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_block: int = Q_BLOCK):
     """Causal GQA attention over query blocks.
@@ -106,6 +119,9 @@ def _attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding layers are O(S*w) compute AND memory).  The queries are padded
     to a multiple of ``q_block`` (padded rows are cropped), and each block
     is JAX's scan step: the same slice, mask and :func:`_gqa_attend`.
+    Under autograd each block is checkpointed, as JAX's scan step is: the
+    backward pass recomputes its scores instead of keeping every block's
+    softmax weights (the whole (S, S) matrix).
     """
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -115,23 +131,16 @@ def _attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nb = (sq + pad) // q_block
     use_slice = window is not None and window + q_block < sk
     l_kv = window + q_block if use_slice else sk
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     outs = []
     for i in range(nb):
         start_q = i * q_block
-        if use_slice:
-            start_k = min(max(start_q + q_block - l_kv, 0), sk - l_kv)
-            kk = k[:, start_k:start_k + l_kv]
-            vv = v[:, start_k:start_k + l_kv]
-        else:
-            start_k = 0
-            kk, vv = k, v
-        qi = start_q + torch.arange(q_block, device=q.device)[:, None]
-        kj = start_k + torch.arange(l_kv, device=q.device)[None, :]
-        m = kj <= qi
-        if window is not None:
-            m &= kj > qi - window
-        outs.append(_gqa_attend(q[:, start_q:start_q + q_block], kk, vv,
-                                m[None].expand(b, *m.shape)))
+        start_k = (min(max(start_q + q_block - l_kv, 0), sk - l_kv)
+                   if use_slice else 0)
+        args = (q[:, start_q:start_q + q_block], k[:, start_k:start_k + l_kv],
+                v[:, start_k:start_k + l_kv], start_q, start_k, window)
+        outs.append(checkpoint(_attend_block, *args, use_reentrant=False)
+                    if grad else _attend_block(*args))
     return torch.cat(outs, dim=1)[:, :sq]
 
 

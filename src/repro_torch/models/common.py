@@ -10,6 +10,12 @@ carrying its shape, initializer and **logical axis names** (e.g.
 * ``meta``-device stand-ins           (:func:`abstract_tree`, no allocation),
 * the logical axes of every leaf      (:func:`logical_axes_tree`).
 
+Gradients: the training path takes autograd through these functions.
+:func:`clip` is ``jnp.clip`` with its gradient (``Tensor.clamp`` passes
+the whole gradient at a bound, JAX's splits it), and
+:func:`chunked_softmax_ce` recomputes each chunk's logits in the backward
+pass (``torch.utils.checkpoint``), as JAX's chunked scan does.
+
 JAX's sharding hooks (``repro.sharding.specs.constrain``) are no-ops
 without a mesh; the port has no mesh here and drops them.
 """
@@ -22,6 +28,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -194,6 +201,19 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections: tuple[int, .
     return _rotate(x, torch.movedim(pos, 0, -1).float() * freqs)
 
 
+def clip(x: torch.Tensor, lo: Optional[float] = None,
+         hi: Optional[float] = None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``, whose
+    backward splits the gradient half and half where ``x`` equals a bound,
+    as JAX's does (``Tensor.clamp`` passes all of it there).  The forward
+    values are ``clamp``'s."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype, device=x.device))
+    return x
+
+
 def swiglu(x, w_gate, w_up, w_down):
     h = F.silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
@@ -216,6 +236,14 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
+def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+              m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of :func:`chunked_softmax_ce`: (masked nll sum, mask sum)."""
+    logits = (h @ w).float()                                 # (B, chunk, V)
+    nll = (torch.logsumexp(logits, dim=-1) - _gold(logits, labels)) * m
+    return nll.sum(), m.sum()
+
+
 def chunked_softmax_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor, chunk: int = 512) -> torch.Tensor:
     """Cross entropy without ever materializing the full (B, S, V) logits.
@@ -223,24 +251,31 @@ def chunked_softmax_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tens
     hidden: (B, S, D) at the positions that predict ``labels`` (B, S);
     w: (D, V) output projection.  A loop over sequence chunks computes
     each chunk's logits, reduces them to (logz, gold) per token and frees
-    them — bounding live logits memory to one chunk.
+    them — bounding live logits memory to one chunk; under autograd each
+    chunk is checkpointed, so the backward pass recomputes its logits
+    instead of keeping every chunk's (B, chunk, V) float32 tensors (what
+    keeps 262k-vocab training inside device memory).
     """
     b, s, d = hidden.shape
+    # a sequence shorter than a chunk is one chunk of its own length (JAX
+    # pads it to a whole chunk: masked rows, which add zeros)
+    chunk = min(chunk, s)
     pad = -s % chunk
     if pad:
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
         mask = F.pad(mask, (0, pad))
     n = (s + pad) // chunk
+    grad = torch.is_grad_enabled() and (hidden.requires_grad or w.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = (hidden[:, sl] @ w).float()                 # (B, chunk, V)
-        m = mask[:, sl]
-        nll = (torch.logsumexp(logits, dim=-1) - _gold(logits, labels[:, sl])) * m
-        tot = tot + nll.sum()
-        cnt = cnt + m.sum()
+        args = (hidden[:, sl], w, labels[:, sl], mask[:, sl])
+        nll, m = (checkpoint(_ce_chunk, *args, use_reentrant=False) if grad
+                  else _ce_chunk(*args))
+        tot = tot + nll
+        cnt = cnt + m
     return tot / torch.clamp(cnt, min=1.0)
 
 

@@ -9,11 +9,16 @@ absolute embeddings).
 Decode caches: decoder self-attention KV (ring-free, full) plus the
 cross-attention K/V computed once from the encoder output at prefill.
 ``decode_step`` writes the self-attention KV in place.
+
+Recomputation, as JAX's: with ``cfg.remat`` every encoder layer is
+checkpointed (``torch.utils.checkpoint``) whatever the phase, and every
+decoder layer of the training loss; the backward pass recomputes them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
@@ -57,18 +62,29 @@ def build_param_specs(cfg: ArchConfig) -> dict:
     }
 
 
+def _maybe_remat(fn, remat: bool, *args):
+    """``fn(*args)``, checkpointed under autograd when ``remat``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _encoder_layer(lp: dict, x: torch.Tensor, pos_ids: torch.Tensor) -> torch.Tensor:
+    h = _ln(lp["ln1"], x)
+    x = x + attn.gqa_forward(lp["attn"], h, positions=pos_ids,
+                             bidirectional=True, use_rope=False)
+    h = _ln(lp["ln2"], x)
+    return x + _mlp_gelu(lp["mlp"], h)
+
+
 def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """frames: (B, T, D) stub embeddings -> encoder hidden states."""
     t = frames.shape[1]
     x = frames + params["enc_pos"][:t][None]
     pos_ids = positions(frames.shape[0], t, frames.device)
     for i in range(cfg.n_enc_layers):
-        lp = tree_index(params["enc_layers"], i)
-        h = _ln(lp["ln1"], x)
-        x = x + attn.gqa_forward(lp["attn"], h, positions=pos_ids,
-                                 bidirectional=True, use_rope=False)
-        h = _ln(lp["ln2"], x)
-        x = x + _mlp_gelu(lp["mlp"], h)
+        x = _maybe_remat(_encoder_layer, cfg.remat,
+                         tree_index(params["enc_layers"], i), x, pos_ids)
     return _ln(params["enc_norm"], x)
 
 
@@ -83,6 +99,14 @@ def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens] + params["dec_pos"][:tokens.shape[1]][None]
 
 
+def _train_decoder_layer(lp: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                         pos_ids: torch.Tensor) -> torch.Tensor:
+    ek, ev = attn.cross_encode_kv(lp["cross_attn"], enc_out)
+    return _decoder_layer(
+        lp, x, lambda h: attn.gqa_forward(lp["self_attn"], h, positions=pos_ids,
+                                          use_rope=False), ek, ev)
+
+
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     """Next-token cross entropy of the decoder -> (ce, metrics)."""
     tokens = batch["tokens"]
@@ -90,11 +114,8 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     x = _embed(params, tokens)
     pos_ids = positions(*tokens.shape, tokens.device)
     for i in range(cfg.n_layers):
-        lp = tree_index(params["dec_layers"], i)
-        ek, ev = attn.cross_encode_kv(lp["cross_attn"], enc_out)
-        x = _decoder_layer(
-            lp, x, lambda h, lp=lp: attn.gqa_forward(
-                lp["self_attn"], h, positions=pos_ids, use_rope=False), ek, ev)
+        x = _maybe_remat(_train_decoder_layer, cfg.remat,
+                         tree_index(params["dec_layers"], i), x, enc_out, pos_ids)
     hidden = _ln(params["dec_norm"], x)
     labels = batch["labels"]
     mask = (labels >= 0).float()

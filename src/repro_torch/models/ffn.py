@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec
+from .common import ParamSpec, clip
 
 
 def mlp_specs(d_model: int, d_ff: int, gated: bool = True) -> dict:
@@ -85,7 +85,7 @@ def moe_forward(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float 
     probs = torch.softmax(logits, dim=-1) if router_softmax else torch.sigmoid(logits)
     gate_vals, idx = top_k_stable(probs, top_k)               # (T, k)
     if router_softmax and top_k > 1:
-        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+        gate_vals = gate_vals / clip(gate_vals.sum(-1, keepdim=True), 1e-9)
 
     capacity = moe_capacity(t, top_k, capacity_factor, n_experts)
     # routing mask (T, k, E) -> position of each (token, slot) inside its

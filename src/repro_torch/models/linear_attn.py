@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from .common import clip
+
 MAX_EXP = 80.0  # guard only; callers keep spans below this (see chunk sizes)
 f32 = torch.float32
 
@@ -103,7 +105,7 @@ def chunked(q, k, v, log_w, *, chunk: int = 64, exclusive: bool = False,
         l_end = lcum[:, -1:]                             # (B,1,H,dk)
         l_q = lprev if exclusive else lcum               # decay seen by q_t
         q_in = qt * torch.exp(l_q)                       # <= 1
-        k_dec = kt * torch.exp(torch.clamp(-lcum, max=MAX_EXP))
+        k_dec = kt * torch.exp(clip(-lcum, hi=MAX_EXP))
         # intra-chunk "attention": scores (B,H,T,T) strictly causal
         scores = torch.einsum("bthk,bshk->bhts", q_in, k_dec)
         scores = torch.where(mask[None, None], scores, 0.0)

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ParamSpec, layer_norm
+from .common import ParamSpec, clip, layer_norm
 from .linear_attn import chunked, single_step
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -87,7 +87,7 @@ def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
     lora = torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
     # faithful RWKV range: w = exp(-exp(d)) with d <= ~1, so per-step
     # log-decay is >= -e; with chunk=16 the in-chunk span stays < 80.
-    return -torch.exp(torch.clamp(p["decay_base"].float() + lora.float(), -8.0, 1.0))
+    return -torch.exp(clip(p["decay_base"].float() + lora.float(), -8.0, 1.0))
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,17 @@ index).  The plan covers:
 * RWKV6 (attention-free)
 * M-RoPE + stub vision frontend (qwen2-vl)
 
-Three entry points per model: ``loss_fn`` (its value; the gradient and
-the trainer wait for the training slice), ``prefill`` (full seq -> cache
-+ last logits), ``decode_step`` (one token against the cache, which it
+Three entry points per model: ``loss_fn`` (the training loss; autograd
+gives its gradient, ``train.loop``), ``prefill`` (full seq -> cache +
+last logits), ``decode_step`` (one token against the cache, which it
 updates in place).  ``pos`` is a Python int throughout.
+
+Recomputation, as JAX's: in the training phase with ``cfg.remat`` each
+repetition of a stacked group's unit (JAX's scan body) is checkpointed
+(``torch.utils.checkpoint``), so the backward pass keeps one activation
+per repetition and recomputes the rest; a group run once is not.  The
+recomputed values are the forward's, so the gradients equal those of a
+run without it.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from . import attention as attn
@@ -194,6 +202,7 @@ class Ctx:
     cfg: ArchConfig
     positions: torch.Tensor                         # (B, S)
     mrope_positions: Optional[torch.Tensor] = None  # (3, B, S)
+    phase: str = "train"                            # train | prefill | decode
 
 
 def _mrope_ids(cfg: ArchConfig, batch: int, n_vis: int, s_text: int,
@@ -254,12 +263,31 @@ def apply_layer(desc: LayerDesc, p: dict, x: torch.Tensor, ctx: Ctx):
     return x, aux if moe_aux is None else moe_aux
 
 
+def _unit(descs: tuple, ps: list, x: torch.Tensor, aux: torch.Tensor,
+          ctx: Ctx):
+    """One repetition of a group's unit (JAX's scan body) -> (x, aux)."""
+    for d, p in zip(descs, ps):
+        x, a = apply_layer(d, p, x, ctx)
+        aux = aux + a
+    return x, aux
+
+
 def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx):
     """Run all groups; returns (hidden (B,S,D), total aux loss)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for *_, d, p in _layers(params, build_plan(cfg)):
-        x, aux = apply_layer(d, p, x, ctx)
-        aux_total = aux_total + aux
+    for gi, g in enumerate(build_plan(cfg)):
+        gp = params["groups"][gi]
+        remat = (cfg.remat and ctx.phase == "train" and g.reps > 1
+                 and torch.is_grad_enabled())
+        for r in range(g.reps):
+            ps = [params["shared_attn"] if d.shared else
+                  (gp[di] if g.reps == 1 else tree_index(gp[di], r))
+                  for di, d in enumerate(g.descs)]
+            if remat:
+                x, aux_total = checkpoint(_unit, g.descs, ps, x, aux_total, ctx,
+                                          use_reentrant=False)
+            else:
+                x, aux_total = _unit(g.descs, ps, x, aux_total, ctx)
     return rms_norm(x, params["final_norm"]), aux_total
 
 
@@ -278,7 +306,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# Train (the loss value) / prefill / decode entry points
+# Train / prefill / decode entry points
 # ---------------------------------------------------------------------------
 
 
@@ -300,7 +328,7 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     tokens = batch["tokens"]
     b, s = tokens.shape
     x, mrope = _embed_prompt(params, batch, cfg)
-    ctx = Ctx(cfg, positions(b, x.shape[1], x.device), mrope)
+    ctx = Ctx(cfg, positions(b, x.shape[1], x.device), mrope, phase="train")
     hidden, aux = forward(params, x, cfg, ctx)
     if cfg.family == "vlm":
         hidden = hidden[:, -s:, :]
@@ -439,7 +467,8 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig, max_seq: int,
     Returns (last-token logits (B, V), cache tree).
     """
     x, mrope = _embed_prompt(params, batch, cfg)
-    ctx = Ctx(cfg, positions(x.shape[0], x.shape[1], x.device), mrope)
+    ctx = Ctx(cfg, positions(x.shape[0], x.shape[1], x.device), mrope,
+              phase="prefill")
     plan = build_plan(cfg)
     per_layer = {}
     for gi, r, di, d, p in _layers(params, plan):
@@ -502,7 +531,7 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ArchConfig):
         start = (cfg.n_vision_tokens + cfg.vision_grid - 1) // cfg.vision_grid + 1
         mrope = torch.full((3, b, 1), pos - cfg.n_vision_tokens + start,
                            dtype=torch.int32, device=x.device)
-    ctx = Ctx(cfg, pos_ids, mrope)
+    ctx = Ctx(cfg, pos_ids, mrope, phase="decode")
     plan = build_plan(cfg)
     for gi, r, di, d, p in _layers(params, plan):
         gc = cache["groups"][gi][di]

@@ -1,1 +1,2 @@
-"""Device sets the port shards work over (``specs.batch_devices``)."""
+"""Device sets the port shards work over (``specs.batch_devices``) and
+the local half of gradient compression (``compression``)."""

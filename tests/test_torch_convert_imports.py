@@ -91,7 +91,11 @@ def test_port_imports_neither_jax_nor_repro():
                 "models/linear_attn.py", "models/rwkv.py", "models/ssm.py",
                 "models/transformer.py", "models/encdec.py",
                 "models/registry.py", "serve/engine.py", "configs/base.py",
-                "configs/gemma3_1b.py", "configs/deepseek_v2.py"):
+                "configs/gemma3_1b.py", "configs/deepseek_v2.py",
+                "train/loop.py", "train/optimizer.py", "checkpoint/ckpt.py",
+                "runtime/health.py", "sharding/compression.py",
+                "data/synthetic.py", "launch/train.py", "launch/lm_train.py",
+                "launch/lm_serve.py"):
         assert port / mod in files, mod
     for path in files:
         for mod in _imports(path):

@@ -612,3 +612,44 @@ def test_lm_generate_without_host_sync(cuda):
             "tokens": toks[-1][:, None].to(torch.int32), "pos": 40 + i})
         toks.append(logits.argmax(-1))
     assert torch.equal(out[:, 40:], torch.stack(toks, 1).to(out.dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_train_step_card_equals_cpu(cuda, arch):
+    """One training step of each SMOKE LM on the card against the CPU:
+    the loss and the gradient norm (chip_smoke's training check (c) and
+    its tolerances)."""
+    assert _chip_smoke().train_smoke_vs_cpu(cuda, arch) <= 1.0
+
+
+@pytest.mark.gpu
+def test_lm_train_run_resumes_on_card(cuda, tmp_path):
+    """``train.loop.run`` of gemma3 SMOKE on the card: 4 steps with a
+    checkpoint at step 2, then a run to 4 from that checkpoint; the two
+    final states equal bit for bit, and the restored step-2 state is the
+    card's own."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.data.synthetic import ShardedBatcher, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, run
+    model = build_model(gemma3_1b.SMOKE)
+    data = ShardedBatcher(TokenStream(model.cfg.vocab, 0), 2, 40, device=cuda)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    whole, hist = run(model, data, LoopConfig(4, 2, str(tmp_path / "a"), 1), ocfg,
+                      gen(), device=cuda)
+    assert [h["step"] for h in hist] == [1, 2, 3, 4]
+    run(model, data, LoopConfig(2, 2, str(tmp_path / "b"), 1), ocfg, gen(),
+        device=cuda)
+    resumed, _ = run(model, data, LoopConfig(4, 2, str(tmp_path / "b"), 1), ocfg,
+                     gen(), device=cuda)
+    leaves = lambda s: opt.tree_leaves([s.params, s.mu, s.nu])  # noqa: E731
+    assert resumed.step == whole.step == 4
+    assert all(a.is_cuda and torch.equal(a, b)
+               for a, b in zip(leaves(resumed), leaves(whole)))
+    two, _ = ckpt.restore(opt.abstract_state(model.abstract_params(torch.float32),
+                                             ocfg), tmp_path / "a", 2, device=cuda)
+    assert two.step == 2

@@ -163,6 +163,34 @@ def test_lm_decode_roots_reach_the_blocks():
     assert "prefill" not in hot[models + "transformer.py"]
 
 
+def test_lm_training_roots_reach_the_step():
+    """The training loop's roots reach the step, the loss, its blocks,
+    the update and the checkpoint calls ``run`` makes; ``run``'s log-step
+    loss read and the checkpoint's host copies are the suppressed syncs."""
+    import ast
+    trees = {str(p.relative_to(ROOT)): ast.parse(p.read_text())
+             for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))}
+    hot = tlint.hot_units(trees)
+    src = "src/repro_torch/"
+    assert {"run", "make_train_step", "value_and_grad"} <= hot[src + "train/loop.py"]
+    assert {"adamw_update", "clip_by_global_norm", "lr_at"} <= hot[
+        src + "train/optimizer.py"]
+    assert {"loss_fn", "forward", "_unit", "apply_layer"} <= hot[
+        src + "models/transformer.py"]
+    assert {"loss_fn", "encode", "_maybe_remat"} <= hot[src + "models/encdec.py"]
+    assert {"chunked_softmax_ce", "_ce_chunk", "clip"} <= hot[
+        src + "models/common.py"]
+    assert {"save", "restore"} <= hot[src + "checkpoint/ckpt.py"]
+    rep = tlint.run_lint([ROOT / "src" / "repro_torch" / "train",
+                          ROOT / "src" / "repro_torch" / "checkpoint"])
+    assert rep.ok, rep.summary()
+    loop = (ROOT / "src/repro_torch/train/loop.py").read_text()
+    assert "analysis: ignore[lint-host-sync-in-hot-path]" in loop
+    stripped = loop.replace("# analysis: ignore[lint-host-sync-in-hot-path]", "")
+    assert not tlint.lint_source(
+        stripped, "src/repro_torch/train/loop.py", hot={"run"}).ok
+
+
 def test_port_tree_is_clean():
     rep = tlint.run_lint()
     assert rep.ok, rep.summary()

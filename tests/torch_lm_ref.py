@@ -245,3 +245,83 @@ def check_consistency(case: ModelCase) -> None:
     got, _ = tm.decode(tp, cache, {"tokens": full["tokens"][:, -1:],
                                    "pos": case.pos0 - 1})
     assert_close(got, want, **BF16)
+
+
+# ---------------------------------------------------------------------------
+# Gradients (test_torch_lm_grads*.py)
+# ---------------------------------------------------------------------------
+
+LOSS_RTOL = 1e-5        # the loss, ce and aux: float32 sums in another order
+# each gradient leaf within GRAD_ATOL x its largest JAX entry (no rtol: a
+# gradient entry near 0 carries its leaf's float32 noise).  Measured on the
+# ten SMOKE models: at most 2.4e-4 (whisper's), the others under 6e-5.
+GRAD_ATOL = 1e-3
+
+
+def port_value_and_grad(model, params, batch):
+    """The port's ((loss, metrics), grads) through ``train.loop``."""
+    from repro_torch.train.loop import value_and_grad
+    return value_and_grad(model, params, batch)
+
+
+def jax_value_and_grad(model, params, batch):
+    return jax.jit(jax.value_and_grad(model.loss, has_aux=True))(params, batch)
+
+
+def grad_ratio(got, want) -> float:
+    """max |got - want| / (GRAD_ATOL x max |want|): at most 1 passes."""
+    want = to_np(want)
+    scale = float(np.abs(want).max(initial=0.0))
+    err = float(np.abs(to_np(got) - want).max(initial=0.0))
+    if scale == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / (GRAD_ATOL * scale)
+
+
+def assert_grads_close(got_tree, want_tree) -> float:
+    """Every leaf, in JAX's flatten order and with its path in the message;
+    returns the worst :func:`grad_ratio`."""
+    assert (jax.tree.structure(got_tree, is_leaf=torch.is_tensor)
+            == jax.tree.structure(want_tree))
+    worst = 0.0
+    for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(want_tree)[0],
+                            jax.tree.leaves(got_tree, is_leaf=torch.is_tensor)):
+        assert tuple(g.shape) == tuple(w.shape), jax.tree_util.keystr(path)
+        r = grad_ratio(g, w)
+        assert r <= 1.0, (jax.tree_util.keystr(path), r)
+        worst = max(worst, r)
+    return worst
+
+
+def check_grads(case: "ModelCase") -> float:
+    """``jax.value_and_grad(Model.loss)`` against the port's autograd on
+    the same parameters and batch: loss, ce and aux at ``LOSS_RTOL``, every
+    gradient leaf at ``GRAD_ATOL`` of its largest entry."""
+    (want, wm), wg = jax_value_and_grad(case.jm, case.jp, case.jbatch(case.train))
+    (got, gm), gg = port_value_and_grad(case.tm, case.tp, case.tbatch(case.train))
+    for name, g, w in (("loss", got, want), ("ce", gm["ce"], wm["ce"]),
+                       ("aux", gm["aux"], wm["aux"])):
+        np.testing.assert_allclose(to_np(g), to_np(w), rtol=LOSS_RTOL,
+                                   atol=1e-7, err_msg=name)
+    return assert_grads_close(gg, wg)
+
+
+def check_remat_equal(case: "ModelCase") -> None:
+    """``cfg.remat`` on and off give ``torch.equal`` gradients (the
+    recomputed forward is the forward): the loss, and every leaf."""
+    import dataclasses
+
+    from repro_torch.models.registry import build_model
+    batch = case.tbatch(case.train)
+    runs = {}
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(case.tm.cfg, remat=remat))
+        runs[remat] = port_value_and_grad(model, case.tp, batch)
+    (l1, _), g1 = runs[True]
+    (l0, _), g0 = runs[False]
+    assert torch.equal(l1, l0)
+    leaves1 = jax.tree.leaves(g1, is_leaf=torch.is_tensor)
+    leaves0 = jax.tree.leaves(g0, is_leaf=torch.is_tensor)
+    assert len(leaves1) == len(leaves0)
+    for a, b in zip(leaves1, leaves0):
+        assert torch.equal(a, b)
