@@ -134,8 +134,20 @@ Phases (any failure exits non-zero before the result line):
    and the memory of the loss and gradients with and without each
    cross-entropy chunk recomputed; then, with the FULL state freed, (c)
    one training step of each of the ten SMOKE architectures, card against
-   CPU: the loss and the gradient norm.  No kernel is on the LM path, nor
-   on its training path;
+   CPU: the loss and the gradient norm; then the mesh phase
+   (``chip_smoke.py --mesh``, a child process: NCCL with a world of one on
+   the card, the (1, 1) smoke mesh): ``psum_matmul``,
+   ``ring_weight_gather_matmul``, ``pipeline_apply``, ``sparse_psum``,
+   ``quantized_pmean`` and ``moe_forward_sharded`` (deepseek-v2 SMOKE's
+   MoE layer) each against the card's unsharded result; gemma3-1b FULL two
+   training steps at B=2 x 64 with the state placed by the logical-axis
+   rules as DTensors, the losses and every state leaf ``torch.equal`` to
+   the same two steps without a mesh, under ``set_sync_debug_mode
+   ("error")``; ms per step at B=4 x 1024 with and without the mesh, in
+   turns, median of 5; the mesh state through a checkpoint and
+   ``restore(shardings=)``, bit for bit; two NCCL ranks where the machine
+   has two cards (else it says they were not run).  No kernel is on the
+   LM path, nor on its training or mesh paths;
 5. print the launch counters of each main-path run, each read from
    counters set to 0 just before that run: each run must launch the
    kernels its plan's layers resolve to and no other, each exactly once
@@ -158,8 +170,12 @@ Phases (any failure exits non-zero before the result line):
    --arch gemma3-1b --requests 2 --prompt-len 16 --new-tokens 8`` (FULL)
    and ``--smoke`` runs of deepseek-v2-236b, whisper-medium and
    qwen2-vl-7b, with ``python -m repro_torch.launch.train --arch gemma3-1b
-   --steps 3 --batch 4 --seq 1024`` (FULL) and ``--smoke --steps 20`` runs
-   of stablelm-3b, deepseek-v2-236b and rwkv6-1.6b, the eight at once;
+   --mesh smoke --steps 3 --batch 4 --seq 1024`` (FULL) and ``--smoke
+   --steps 20`` runs of stablelm-3b, deepseek-v2-236b and rwkv6-1.6b,
+   ``launch.train --mesh single`` (must exit non-zero: no torchrun world of
+   256) and ``python -m repro_torch.launch.dryrun --arch gemma3-1b --mesh
+   single`` at train_4k and decode_32k (each cell ``ok``; its roofline terms
+   and seconds printed), the eleven at once;
 7. time each kernel on the device (a CUDA graph of its launches,
    replayed between CUDA events) and as launched from Python, against its
    bound, its plain version and a library yardstick (each queue conv unit
@@ -1865,18 +1881,24 @@ LM_CLI = (("gemma3-1b", ["--requests", "2", "--prompt-len", "16",
           ("qwen2-vl-7b", ["--smoke"], 4))
 # python -m repro_torch.launch.train: (arch, flags, logged steps); the loop
 # logs the first step and every 10th
-TRAIN_CLI = (("gemma3-1b", ["--steps", "3", "--batch", "4", "--seq", "1024"], 1),
+# python -m repro_torch.launch.dryrun --arch gemma3-1b --mesh single: shapes
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+TRAIN_CLI = (("gemma3-1b", ["--mesh", "smoke", "--steps", "3", "--batch", "4",
+                           "--seq", "1024"], 1),
              ("stablelm-3b", ["--smoke", "--steps", "20"], 3),
              ("deepseek-v2-236b", ["--smoke", "--steps", "20"], 3),
              ("rwkv6-1.6b", ["--smoke", "--steps", "20"], 3))
 
 
-def lm_cli(env) -> None:
+def lm_cli(env, tmp: Path) -> None:
     """Phase 6, LM: ``python -m repro_torch.launch.serve --arch <lm>`` on
-    the card (gemma3-1b FULL; three SMOKE families) and ``python -m
-    repro_torch.launch.train --arch <lm>`` (gemma3-1b FULL, 3 steps at
-    B=4 x 1024; 20 SMOKE steps of stablelm-3b, deepseek-v2-236b and
-    rwkv6-1.6b), the eight at once."""
+    the card (gemma3-1b FULL; three SMOKE families), ``python -m
+    repro_torch.launch.train --arch <lm>`` (gemma3-1b FULL on the smoke
+    mesh, 3 steps at B=4 x 1024; 20 SMOKE steps of stablelm-3b,
+    deepseek-v2-236b and rwkv6-1.6b), ``--mesh single`` without torchrun
+    (must exit non-zero, naming the world it found) and ``python -m
+    repro_torch.launch.dryrun --arch gemma3-1b --mesh single`` at
+    train_4k and decode_32k (each cell ``ok``), all at once."""
     def start(module, arch, flags):
         return subprocess.Popen(
             [sys.executable, "-m", module, "--arch", arch, *flags],
@@ -1887,6 +1909,12 @@ def lm_cli(env) -> None:
             for arch, flags, n in LM_CLI]
     runs += [("train", arch, n, start("repro_torch.launch.train", arch, flags))
              for arch, flags, n in TRAIN_CLI]
+    runs.append(("refused", "gemma3-1b", 0, start(
+        "repro_torch.launch.train", "gemma3-1b", ["--mesh", "single"])))
+    runs += [("dryrun", shape, 0, start(
+        "repro_torch.launch.dryrun", "gemma3-1b",
+        ["--mesh", "single", "--shape", shape, "--out", str(tmp / "dryrun")]))
+        for shape in DRYRUN_SHAPES]
     try:
         for kind, arch, n, proc in runs:
             out, err = proc.communicate(timeout=600)
@@ -1894,12 +1922,38 @@ def lm_cli(env) -> None:
             if kind == "serve":
                 ok = (len([ln for ln in out.splitlines() if ln.startswith("req ")])
                       == n and "device=" in out)
+            elif kind == "refused":
+                print(f"train --mesh single without torchrun: exit "
+                      f"{proc.returncode}: {err.strip()}")
+                ok = proc.returncode != 0 and "found a world of 1" in err
+            elif kind == "dryrun":
+                cell = json.loads((tmp / "dryrun" / f"gemma3-1b__{arch}__single__"
+                                   f"baseline.json").read_text())
+                ok = proc.returncode == 0 and cell["status"] == "ok"
+                if ok:
+                    r = cell["roofline"]
+                    sites: dict = {}
+                    for x in cell["redistributions"]:
+                        sites[x["rule"]] = sites.get(x["rule"], 0) + x["count"]
+                    print(f"dryrun gemma3-1b x {arch} x single (16x16, fake "
+                          f"group, meta; H100 SXM data-sheet peaks): "
+                          f"{r['flops_per_device']:.4g} FLOP, "
+                          f"{r['bytes_per_device']:.4g} B, "
+                          f"{r['wire_bytes_per_device']:.4g} wire B per device; "
+                          f"t_compute {r['t_compute'] * 1e3:.2f} ms, t_memory "
+                          f"{r['t_memory'] * 1e3:.2f} ms, t_collective "
+                          f"{r['t_collective'] * 1e3:.2f} ms, bottleneck "
+                          f"{r['bottleneck']}; collectives "
+                          f"{r['collectives']['counts']}; explicit "
+                          f"redistributions by rule {sites}; built in "
+                          f"{cell['seconds_lower']} s, step counted in "
+                          f"{cell['seconds_compile']} s")
             else:
                 steps = [ln.split() for ln in out.splitlines()
                          if ln.startswith("  step ")]
                 ok = (len(steps) == n and "M params" in out.splitlines()[0]
                       and all(math.isfinite(float(t[3])) for t in steps))
-            if proc.returncode != 0 or not ok:
+            if not ok or (kind != "refused" and proc.returncode != 0):
                 fail(f"{kind} --arch {arch} exited {proc.returncode}:\n"
                      f"{err[-4000:]}")
     finally:
@@ -2255,6 +2309,268 @@ def lm_train_phase() -> list[str]:
     if child.returncode != 0:
         fail(f"the LM training phase exited {child.returncode}:\n"
              f"{child.stderr[-4000:]}")
+    return timing_lines
+
+
+# --------------------------------------------------------- phase 4, mesh
+# Stated before the first card run of the mesh phase (PERF.md §6, PR 24):
+# on the (1, 1) mesh every shard is the whole tensor and every collective
+# a group of one, so gemma3-1b FULL's two steps at B=2 x 64 equal the two
+# steps without a mesh bit for bit, and each collective function equals
+# its unsharded product.
+MESH_B, MESH_S = 2, 64
+MESH_TIME_B, MESH_TIME_S, MESH_TURNS = 4, 1024, 5
+
+
+def hold_mesh(name: str, got, want, rtol: float = 0.0) -> None:
+    """``torch.equal``, or with ``rtol`` within it (atol rtol x max |want|)."""
+    import torch
+    err = (got - want).abs().max().item()
+    ok = (torch.equal(got, want) if not rtol else
+          err <= rtol * max(want.abs().max().item(), 1.0))
+    if not ok or got.shape != want.shape:
+        fail(f"{name}: differs from the unsharded result by {err:.3g}")
+    print(f"{name}: {'equal' if not rtol else f'max |diff| {err:.3g}'}")
+
+
+def mesh_collectives(dev, mesh) -> None:
+    """The five collective functions and ``moe_forward_sharded``
+    (deepseek-v2 SMOKE's MoE layer) on the (1, 1) card mesh, each against
+    the card's unsharded result."""
+    import torch
+
+    from repro_torch.configs import deepseek_v2
+    from repro_torch.models import ffn
+    from repro_torch.models.common import init_tree
+    from repro_torch.sharding.compression import (compress_topk, decompress,
+                                                  dequantize_grad, quantize_grad,
+                                                  quantized_pmean, sparse_psum)
+    from repro_torch.sharding.collectives import shard_map
+    from repro_torch.sharding.overlap import psum_matmul, ring_weight_gather_matmul
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.sharding.specs import PartitionSpec as P
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(256, 1152, generator=g, device=dev)
+    w = torch.randn(1152, 512, generator=g, device=dev)
+    want = x @ w
+    hold_mesh("mesh psum_matmul", psum_matmul(x, w, mesh, "model").to_local(), want)
+    hold_mesh("mesh ring_weight_gather_matmul",
+              ring_weight_gather_matmul(x, w, mesh, "data").to_local(), want)
+    ws = torch.randn(1, 512, 512, generator=g, device=dev) * 0.05
+    xp = torch.randn(64, 512, generator=g, device=dev)
+    got = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), {"w": ws}, xp,
+                         mesh=mesh, axis="data", n_microbatches=4).to_local()
+    want = torch.cat([torch.tanh(m @ ws[0]) for m in xp.chunk(4)])
+    hold_mesh("mesh pipeline_apply (1 stage, 4 microbatches)", got, want)
+    gr = torch.randn(1 << 20, generator=g, device=dev)
+    c = compress_topk(gr, 1 << 10)
+    hold_mesh("mesh sparse_psum", sparse_psum(c, mesh, "data").to_local(),
+              decompress(c))
+
+    def qbody(gl):
+        return quantized_pmean(gl, torch.Generator(device=dev).manual_seed(3),
+                               mesh, "data")
+    got = shard_map(qbody, mesh=mesh, in_specs=(P(),), out_specs=P())(gr).to_local()
+    want = dequantize_grad(quantize_grad(gr, torch.Generator(device=dev).manual_seed(3)))
+    hold_mesh("mesh quantized_pmean", got, want)
+    cfg = deepseek_v2.SMOKE
+    p = init_tree(ffn.moe_specs(cfg.d_model, cfg.d_ff_expert or cfg.d_ff,
+                                cfg.n_experts, cfg.n_shared_experts),
+                  torch.Generator().manual_seed(0), dev)
+    xm = torch.randn(MESH_B, MESH_S, cfg.d_model, generator=g, device=dev)
+    out, aux = ffn.moe_forward_sharded(p, xm, top_k=cfg.top_k,
+                                       n_experts=cfg.n_experts, mesh=mesh)
+    want, want_aux = ffn.moe_forward(p, xm, top_k=cfg.top_k)
+    hold_mesh("mesh moe_forward_sharded (deepseek-v2 SMOKE)", out, want, rtol=1e-5)
+    hold_mesh("mesh moe_forward_sharded aux", aux, want_aux, rtol=1e-5)
+    print("mesh: psum_matmul, ring_weight_gather_matmul, pipeline_apply, "
+          "sparse_psum, quantized_pmean and moe_forward_sharded on the (1, 1) "
+          "card mesh equal their unsharded results")
+
+
+def mesh_two_ranks() -> None:
+    """Two NCCL ranks (where the machine has two cards): ``psum_matmul``
+    over a 2-rank axis against the unsharded product."""
+    import socket
+
+    import torch
+    if torch.cuda.device_count() < 2:
+        print(f"mesh: 2 NCCL ranks not run ({torch.cuda.device_count()} card)")
+        return
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = ("import os, sys, torch; sys.path.insert(0, 'src')\n"
+            "from repro_torch.launch.mesh import init_distributed, make_custom_mesh\n"
+            "from repro_torch.sharding.overlap import psum_matmul\n"
+            "init_distributed('cuda'); mesh = make_custom_mesh((2,), ('model',))\n"
+            "g = torch.Generator(device='cuda').manual_seed(0)\n"
+            "x = torch.randn(64, 256, generator=g, device='cuda')\n"
+            "w = torch.randn(256, 128, generator=g, device='cuda')\n"
+            "y = psum_matmul(x, w, mesh, 'model').to_local()\n"
+            "assert torch.allclose(y, x @ w, rtol=1e-4, atol=1e-3)\n"
+            "torch.distributed.destroy_process_group()\n")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)))
+        for r in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=120)
+            if p.returncode:
+                fail(f"mesh: a 2-rank NCCL psum_matmul exited {p.returncode}:\n"
+                     f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print("mesh: psum_matmul over 2 NCCL ranks (2 cards) equals x @ w")
+
+
+def mesh_train(dev, mesh, card: str, tmp: Path) -> None:
+    """gemma3-1b FULL on the (1, 1) mesh: two steps at B=2 x 64 with the
+    state placed by the rules against the same two steps without a mesh,
+    the losses and every state leaf ``torch.equal``, under
+    ``set_sync_debug_mode("error")``; ms per step at B=4 x 1024 with and
+    without the mesh, in turns, median of 5; the mesh state through a
+    checkpoint and ``restore(shardings=)``, bit for bit."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.data.synthetic import ShardedBatcher, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.specs import (default_rules, set_constraint_mesh,
+                                            shard_tree)
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import make_train_step, state_shardings
+    model = build_model(gemma3_1b.FULL)
+    rules = default_rules()
+    ocfg = opt.AdamWConfig()
+    t0 = time.perf_counter()
+    params = lm_tree_to(model.init_params(torch.Generator().manual_seed(0), "cpu"), dev)
+    plain = opt.init_state(params, ocfg)
+    shardings = state_shardings(model, mesh, rules)
+    meshed = shard_tree(plain, shardings)
+    print(f"mesh gemma3-1b FULL: state placed on the (1, 1) mesh in "
+          f"{time.perf_counter() - t0:.1f} s")
+    step_p = make_train_step(model, ocfg)
+    sharded = make_train_step(model, ocfg, shardings=shardings)
+
+    def step_m(state, batch):  # the launcher's registration, step by step
+        set_constraint_mesh(mesh, rules)
+        try:
+            return sharded(state, batch)
+        finally:
+            set_constraint_mesh(None)
+    ts = TokenStream(gemma3_1b.FULL.vocab, seed=0)
+    feed_p = ShardedBatcher(ts, MESH_B, MESH_S, device=dev)
+    feed_m = ShardedBatcher(ts, MESH_B, MESH_S, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for s in range(2):
+            plain, mp = step_p(plain, feed_p(s))
+            meshed, mm = step_m(meshed, feed_m(s))
+            losses.append((mp["loss"], mm["loss"]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for s, (lp, lm) in enumerate(losses):
+        if not torch.equal(lp, lm):
+            fail(f"mesh step {s + 1}: loss {float(lm)!r} against {float(lp)!r} "
+                 f"without the mesh")
+    local = opt.TrainState(step=meshed.step, **{
+        f: opt.tree_map(lambda t: t.to_local(), getattr(meshed, f))
+        for f in ("params", "mu", "nu")})
+    if not states_equal(local, plain):
+        fail("mesh: the state after 2 steps on the (1, 1) mesh differs from "
+             "the 2 steps without a mesh")
+    print(f"mesh gemma3-1b FULL: 2 steps at B={MESH_B} x {MESH_S} on the (1, 1) "
+          f"mesh equal the 2 steps without a mesh bit for bit (losses "
+          f"{float(mp['loss']):.6f}; every state leaf), no host sync "
+          f"({time.perf_counter() - t0:.1f} s)")
+    feed_p = ShardedBatcher(ts, MESH_TIME_B, MESH_TIME_S, device=dev)
+    feed_m = ShardedBatcher(ts, MESH_TIME_B, MESH_TIME_S, device=dev, mesh=mesh)
+    times = {"mesh": [], "no mesh": []}
+    for s in range(MESH_TURNS + 1):  # the first turn warms both up
+        for name in ("no mesh", "mesh"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "mesh":
+                meshed, _ = step_m(meshed, feed_m(2 + s))
+            else:
+                plain, _ = step_p(plain, feed_p(2 + s))
+            torch.cuda.synchronize()
+            if s:
+                times[name].append((time.perf_counter() - t) * 1e3)
+    for name, ts_ in times.items():
+        print(f"timing mesh gemma3-1b FULL train step B={MESH_TIME_B} x "
+              f"{MESH_TIME_S} {name}: {statistics.median(ts_):.1f} ms "
+              f"(median of {MESH_TURNS}, in turns; "
+              + ", ".join(f"{v:.1f}" for v in ts_) + f") on {card}")
+    del plain
+    torch.cuda.empty_cache()
+    wall = statistics.median(times["mesh"])
+    busy = device_profile(lambda: step_m(meshed, feed_m(99)),
+                          "mesh gemma3-1b FULL train step", wall / 1e3)
+    print(f"timing mesh gemma3-1b FULL train step B={MESH_TIME_B} x "
+          f"{MESH_TIME_S} mesh: device busy {busy:.1f} ms of the "
+          f"{wall:.1f} ms median ({100 * busy / wall:.1f}%) on {card}")
+    t0 = time.perf_counter()
+    ckpt.save(meshed, tmp / "mesh_ckpt", meshed.step)
+    t_save = time.perf_counter() - t0
+    template = opt.abstract_state(model.abstract_params(torch.float32), ocfg)
+    back, _ = ckpt.restore(template, tmp / "mesh_ckpt", shardings=shardings)
+    la = opt.tree_leaves([meshed.params, meshed.mu, meshed.nu])
+    lb = opt.tree_leaves([back.params, back.mu, back.nu])
+    if back.step != meshed.step or not all(
+            a.placements == b.placements and torch.equal(a.to_local(), b.to_local())
+            for a, b in zip(la, lb, strict=True)):
+        fail("mesh: restore(shardings=) differs from the saved mesh state")
+    print(f"mesh gemma3-1b FULL: checkpoint of the mesh state saved in "
+          f"{t_save:.1f} s, restored onto the mesh with shardings= bit for bit "
+          f"({time.perf_counter() - t0 - t_save:.1f} s)")
+
+
+def mesh_main() -> int:
+    """The mesh phase, in a process of its own: NCCL with a world of one on
+    the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_smoke_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = card_line()
+    t0 = time.perf_counter()
+    print(f"mesh: world {init_distributed('cuda')} ({dist.get_backend()}) on {card}")
+    try:
+        mesh = make_smoke_mesh("cuda")
+        mesh_collectives(dev, mesh)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            mesh_train(dev, mesh, card, Path(tmp))
+    finally:
+        dist.destroy_process_group()
+    mesh_two_ranks()
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def mesh_phase() -> list[str]:
+    """Run :func:`mesh_main` in a child process (``chip_smoke.py --mesh``),
+    print its lines and return its timing lines."""
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--mesh"], capture_output=True, text=True,
+                           cwd=ROOT, timeout=600)
+    timing_lines = []
+    for line in child.stdout.splitlines():
+        (timing_lines.append if line.startswith("timing mesh") else print)(line)
+    if child.returncode != 0:
+        fail(f"the mesh phase exited {child.returncode}:\n{child.stderr[-4000:]}")
     return timing_lines
 
 
@@ -3231,6 +3547,8 @@ def main() -> int:
         return lm_main()
     if sys.argv[1:2] == ["--lm-train"]:
         return lm_train_main()
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -3280,6 +3598,9 @@ def main() -> int:
         t0 = time.perf_counter()
         lm_timing_lines += lm_train_phase()
         print(f"phase 4, LM training: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lm_timing_lines += mesh_phase()
+        print(f"phase 4, mesh: {time.perf_counter() - t0:.1f} s")
         print(f"phases 4-5 done at {time.perf_counter() - t_start:.1f} s")
 
         env = dict(os.environ, PYTHONPATH=str(SRC),      # phase 6
@@ -3305,7 +3626,7 @@ def main() -> int:
         if len(json.loads((Path(tmp) / "serve_cache.json").read_text())[
                 "entries"]) != 1:
             fail("serve --tune measured/cached: want one cache entry")
-        lm_cli(env)
+        lm_cli(env, Path(tmp))
     quick = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quickstart"],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)

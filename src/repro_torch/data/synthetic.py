@@ -107,21 +107,26 @@ def synth_digits(n: int, seed: int = 0, hw: tuple[int, int] = (28, 28),
 class ShardedBatcher:
     """``TokenStream`` batches as tensors on the devices.
 
-    With ``devices=None`` a call returns the batch on ``device``.  Given a
-    list of devices (``sharding.specs.batch_devices``) it returns one
-    batch dict per device, each the next contiguous ``batch_size / n``
-    rows: the shards JAX's batcher lays over a 1-D data mesh.  The
-    iterator state is just (seed, step), so a restarted job resumes
-    mid-epoch byte-identically.  A copy to a CUDA device goes through
-    pinned memory without blocking the host.
+    With neither ``mesh`` nor ``devices`` a call returns the batch on
+    ``device``.  Given a DeviceMesh it returns DTensors sharded on the
+    batch dim over those of ``batch_axes`` the mesh has (JAX's globally
+    sharded batch); each rank copies only its own rows to ``device``.
+    Given a list of devices (``sharding.specs.batch_devices``) it returns
+    one batch dict per device, each the next contiguous ``batch_size /
+    n`` rows.  The iterator state is just (seed, step), so a restarted
+    job resumes mid-epoch byte-identically.  A copy to a CUDA device goes
+    through pinned memory without blocking the host.
     """
 
     def __init__(self, stream: TokenStream, batch_size: int, seq_len: int,
-                 device="cuda", devices: Optional[Sequence] = None):
+                 device="cuda", devices: Optional[Sequence] = None,
+                 mesh=None, batch_axes=("pod", "data")):
         import torch
         self.stream = stream
         self.batch_size = batch_size
         self.seq_len = seq_len
+        self.mesh = mesh
+        self.batch_axes = batch_axes
         self.device = torch.device(device)
         self.devices = None if devices is None else [torch.device(d)
                                                      for d in devices]
@@ -137,8 +142,24 @@ class ShardedBatcher:
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
+    def _put_sharded(self, a: np.ndarray):
+        import torch
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.sharding.specs import (NamedSharding, PartitionSpec,
+                                                local_slice, mesh_shape)
+        axes = tuple(ax for ax in self.batch_axes if ax in mesh_shape(self.mesh))
+        sh = NamedSharding(self.mesh, PartitionSpec(axes or None, None))
+        local = local_slice(torch.from_numpy(a), sh)
+        return DTensor.from_local(
+            self._put(np.ascontiguousarray(local.numpy()), self.device),
+            self.mesh, sh.placements, run_check=False, shape=a.shape,
+            stride=tuple(s // a.itemsize for s in a.strides))
+
     def __call__(self, step: int):
         host = self.stream.batch(step, self.batch_size, self.seq_len)
+        if self.mesh is not None:
+            return {k: self._put_sharded(v) for k, v in host.items()}
         if self.devices is None:
             return {k: self._put(v, self.device) for k, v in host.items()}
         n = self.batch_size // len(self.devices)

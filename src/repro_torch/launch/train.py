@@ -1,17 +1,25 @@
 """Training launcher (port of ``repro.launch.train``).
 
-  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --mesh smoke --smoke --steps 50                   # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --arch gemma3-1b --mesh single                    # 256 GPUs
 
-``--mesh smoke`` runs the loop on one device (``--device``, default
-``cuda``).  ``--mesh single|multi`` need the production mesh, which the
-port does not have yet: they exit with a message.  Checkpoint/restart
-comes from ``repro_torch.train.loop``.  ``--compute-dtype`` is accepted
-as JAX's launcher accepts it; there, as here, the loop trains its float32
-parameters in float32.
+``--mesh smoke`` trains on the 1x1 mesh (``launch.mesh.make_smoke_mesh``)
+on ``--device`` (default ``cuda``; a world of one, gloo on the CPU);
+``--mesh single|multi`` build the 16x16 / 2x16x16 production mesh and
+need torchrun with a world of 256 / 512 ranks: any other world exits
+non-zero with its size.  The state is placed on the mesh by the
+logical-axis rules (``train.loop.run(mesh=...)``: the port has no ``jit``
+to place it, so it places it as JAX's dry run and elastic path do) and
+the batch comes sharded from ``ShardedBatcher(mesh=...)``.
+Checkpoint/restart comes from ``repro_torch.train.loop``.
+``--compute-dtype`` is accepted as JAX's launcher accepts it; there, as
+here, the loop trains its float32 parameters in float32.
 """
 import argparse
+import os
 import sys
 
 
@@ -32,16 +40,22 @@ def main(argv=None):
                     help="cuda (the card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "smoke":
-        print(f"--mesh {args.mesh} needs the production mesh, which the port "
-              f"does not have yet; --mesh smoke trains on one device",
-              file=sys.stderr)
+    need = {"smoke": 1, "single": 256, "multi": 512}[args.mesh]
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != need:
+        print(f"--mesh {args.mesh} builds the {need}-rank production mesh "
+              f"and needs torchrun with a world of {need}; found a world of "
+              f"{world}", file=sys.stderr)
         return 2
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.data.synthetic import ShardedBatcher, TokenStream
+    from repro_torch.launch.mesh import (init_distributed, make_production_mesh,
+                                         make_smoke_mesh)
     from repro_torch.models.registry import build_model
+    from repro_torch.sharding.specs import default_rules, set_constraint_mesh
     from repro_torch.train.loop import LoopConfig, run
     from repro_torch.train.optimizer import AdamWConfig
 
@@ -49,18 +63,31 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available "
                          "(pass --device cpu)")
-    cfg = LM_ARCHS[args.arch].SMOKE if args.smoke else LM_ARCHS[args.arch].FULL
-    model = build_model(cfg)
-    print(f"{cfg.name}: {model.n_params() / 1e6:.1f}M params")
-    data = ShardedBatcher(TokenStream(vocab=cfg.vocab, seed=0), args.batch,
-                          args.seq, device=device)
-    ocfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
-                       total_steps=args.steps)
-    state, hist = run(model, data,
-                      LoopConfig(total_steps=args.steps, ckpt_every=50,
-                                 log_every=10, ckpt_dir=args.ckpt_dir),
-                      ocfg, torch.Generator().manual_seed(0), device=device)
-    for h in hist:
+    init_distributed(device.type)
+    try:
+        mesh = (make_smoke_mesh(device.type) if args.mesh == "smoke" else
+                make_production_mesh(multi_pod=args.mesh == "multi",
+                                     device_type=device.type))
+        rules = default_rules(phase="train")
+        set_constraint_mesh(mesh, rules)
+        cfg = LM_ARCHS[args.arch].SMOKE if args.smoke else LM_ARCHS[args.arch].FULL
+        model = build_model(cfg)
+        lead = dist.get_rank() == 0
+        if lead:
+            print(f"{cfg.name}: {model.n_params() / 1e6:.1f}M params")
+        data = ShardedBatcher(TokenStream(vocab=cfg.vocab, seed=0), args.batch,
+                              args.seq, device=device, mesh=mesh)
+        ocfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
+                           total_steps=args.steps)
+        state, hist = run(model, data,
+                          LoopConfig(total_steps=args.steps, ckpt_every=50,
+                                     log_every=10, ckpt_dir=args.ckpt_dir),
+                          ocfg, torch.Generator().manual_seed(0), device=device,
+                          mesh=mesh, rules=rules)
+    finally:
+        set_constraint_mesh(None)
+        dist.destroy_process_group()
+    for h in hist if lead else ():
         print(f"  step {h['step']:5d}  loss {h['loss']:.4f}  {h['sec']:.2f}s")
     return 0
 

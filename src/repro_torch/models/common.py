@@ -16,8 +16,10 @@ the whole gradient at a bound, JAX's splits it), and
 :func:`chunked_softmax_ce` recomputes each chunk's logits in the backward
 pass (``torch.utils.checkpoint``), as JAX's chunked scan does.
 
-JAX's sharding hooks (``repro.sharding.specs.constrain``) are no-ops
-without a mesh; the port has no mesh here and drops them.
+Sharding: under a registered mesh the parameters and batch are DTensors
+and :func:`chunked_softmax_ce` pins each chunk's hidden states and logits
+to the rule-resolved placements (``sharding.specs.constrain``, JAX's
+``with_sharding_constraint`` sites); without a mesh that is a no-op.
 """
 from __future__ import annotations
 
@@ -28,7 +30,10 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.specs import constrain
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -145,11 +150,28 @@ def tree_stack(trees: list) -> Any:
 # ---------------------------------------------------------------------------
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on its gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in float32.  Its backward reduces the incoming gradient over
+    the last dim; autograd may hand that gradient in another layout under a
+    dispatch mode (on DTensors it can arrive transposed), and a reduction
+    over a strided dim sums in another order, so the gradient is made
+    contiguous first: the same bits on and off a mesh."""
     dt = x.dtype
     x32 = x.float()
     x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (x32 * (1.0 + gamma.float())).to(dt)
+    return _ContiguousGrad.apply((x32 * (1.0 + gamma.float())).to(dt))
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -239,9 +261,29 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def _ce_chunk(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
               m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One chunk of :func:`chunked_softmax_ce`: (masked nll sum, mask sum)."""
-    logits = (h @ w).float()                                 # (B, chunk, V)
+    h = constrain(h, ("batch", None, None))
+    logits = constrain((h @ w).float(), ("batch", None, "vocab"))  # (B, chunk, V)
     nll = (torch.logsumexp(logits, dim=-1) - _gold(logits, labels)) * m
     return nll.sum(), m.sum()
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` with ``pad`` zeros appended along dim 1.  On a DTensor the
+    call site redistributes explicitly (dim 1 gathered where it is
+    sharded, each rank padding its own block) through autograd, so the
+    gradient returns to ``t``'s placements; a pad left to
+    ``MeshMode``'s rule below autograd hands the backward pass a gradient
+    replicated over the sequence (4x the wire bytes of gemma3-1b's
+    train_4k dry run)."""
+    spec = (0, 0) * (t.dim() - 2) + (0, pad)
+    if not isinstance(t, DTensor):
+        return F.pad(t, spec)
+    mesh = t.device_mesh
+    pl = tuple(Replicate() if p.is_shard(1) else p for p in t.placements)
+    local = F.pad(t.redistribute(mesh, pl).to_local(), spec)
+    shape = torch.Size((t.shape[0], t.shape[1] + pad, *t.shape[2:]))
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def chunked_softmax_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -262,9 +304,7 @@ def chunked_softmax_ce(hidden: torch.Tensor, w: torch.Tensor, labels: torch.Tens
     chunk = min(chunk, s)
     pad = -s % chunk
     if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad))
-        mask = F.pad(mask, (0, pad))
+        hidden, labels, mask = (_pad_seq(t, pad) for t in (hidden, labels, mask))
     n = (s + pad) // chunk
     grad = torch.is_grad_enabled() and (hidden.requires_grad or w.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)

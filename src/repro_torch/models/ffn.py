@@ -7,9 +7,8 @@ expert gathers the tokens routed to it into a ``capacity``-bounded buffer
 (sort-free ranking via cumsum over the routing mask), computes one dense
 (E, C, d) batch, and scatters back with the gate weights.
 
-JAX's ``moe_forward_sharded`` (expert parallelism over a mesh) falls back
-to :func:`moe_forward` without a mesh and no config selects it; it waits
-for the port's sharding layer.
+:func:`moe_forward_sharded` is the expert-parallel form over a mesh
+(``cfg.moe_impl == "sharded"``); without a mesh it is :func:`moe_forward`.
 """
 from __future__ import annotations
 
@@ -120,4 +119,94 @@ def moe_forward(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float 
     me = probs.mean(dim=0)                                     # (E,)
     ce = flat.reshape(t, top_k, n_experts).sum(dim=(0, 1)) / max(t * top_k, 1)
     aux = n_experts * (me * ce).sum()
+    return out, aux
+
+
+def moe_forward_sharded(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
+                        capacity_factor: float = 1.25, router_softmax: bool = True,
+                        mesh=None, expert_axis: str = "model",
+                        batch_axes=("pod", "data")) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE: local-expert masked compaction per rank.
+
+    Tokens are replicated over the expert (model) axis; each rank ranks
+    ONLY the tokens routed to its own experts into queues of a capacity
+    computed from its *local* token count, computes its expert batch, and
+    the ranks' partial outputs are combined with one ``psum`` over the
+    expert axis — the only collective of this layer besides the
+    auxiliary loss's mean over the batch axes.
+
+    x: (B, S, D) sharded batch-over-``batch_axes``; expert tensors sharded
+    (expert_axis, None, None).  A DTensor ``x`` gives DTensors, a plain
+    (global) one plain tensors.  Without a mesh (argument or the registered
+    constraint mesh), without the expert axis, or with experts that do not
+    split over it, this is :func:`moe_forward`.
+    """
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.collectives import axis_index, psum, shard_map
+    from repro_torch.sharding.specs import PartitionSpec as P
+    from repro_torch.sharding.specs import constraint_mesh, mesh_shape
+    if mesh is None:
+        mesh = constraint_mesh()
+    sizes = {} if mesh is None else mesh_shape(mesh)
+    if expert_axis not in sizes or n_experts % sizes[expert_axis] != 0:
+        return moe_forward(p, x, top_k=top_k, capacity_factor=capacity_factor,
+                           router_softmax=router_softmax)
+    e_loc = n_experts // sizes[expert_axis]
+    d = x.shape[-1]
+    baxes = tuple(a for a in batch_axes if a in sizes)
+
+    def body(xb, router, we_gate, we_up, we_down):
+        t = xb.shape[0] * xb.shape[1]
+        xt = xb.reshape(t, d)
+        logits = (xt @ router).float()                           # (T_loc, E)
+        probs = torch.softmax(logits, -1) if router_softmax else torch.sigmoid(logits)
+        gate_vals, idx = top_k_stable(probs, top_k)              # (T_loc, k)
+        if router_softmax and top_k > 1:
+            gate_vals = gate_vals / clip(gate_vals.sum(-1, keepdim=True), 1e-9)
+        shard = axis_index(mesh, expert_axis)
+        local = idx // e_loc == shard                            # (T_loc, k) mine?
+        idx_loc = torch.where(local, idx % e_loc, e_loc)         # e_loc = drop slot
+        capacity = moe_capacity(t, top_k, capacity_factor, n_experts)
+        onehot = (idx_loc[..., None] == torch.arange(e_loc, device=xb.device)
+                  ).int()                                        # (T, k, E_loc)
+        flat = onehot.reshape(t * top_k, e_loc)
+        pos = torch.cumsum(flat, dim=0) - flat
+        pos = (pos.reshape(t, top_k, e_loc) * onehot).sum(-1)    # (T, k)
+        keep = local & (pos < capacity)
+        slot = torch.where(keep, pos, capacity).long()           # spare slot
+        expert = torch.where(keep, idx_loc, e_loc).long()        # spare expert
+        token_ids = torch.arange(t, device=xb.device)[:, None].expand(t, top_k)
+        buf = xb.new_zeros((e_loc + 1, capacity + 1, d))
+        buf[expert, slot] = xt[token_ids]
+        buf = buf[:e_loc, :capacity]
+        h = F.silu(torch.einsum("ecd,edf->ecf", buf, we_gate))
+        h = h * torch.einsum("ecd,edf->ecf", buf, we_up)
+        out_buf = torch.einsum("ecf,efd->ecd", h, we_down)
+        gathered = out_buf[idx_loc.clamp(max=e_loc - 1).long(),
+                           slot.clamp(max=capacity - 1)]
+        gathered = gathered * torch.where(keep, gate_vals, 0.0).to(xb.dtype)[..., None]
+        out = psum(gathered.sum(dim=1).reshape(xb.shape), mesh, expert_axis)
+        # local aux estimate (router replicated; idx covers global experts)
+        me = probs.mean(dim=0)
+        ce = torch.zeros(n_experts, device=xb.device).index_add_(
+            0, idx.reshape(-1), torch.ones(idx.numel(), device=xb.device)
+        ) / max(t * top_k, 1)
+        aux = n_experts * (me * ce).sum()
+        n_b = 1
+        for a in baxes:  # the mean of the per-shard estimates
+            aux = psum(aux, mesh, a)
+            n_b *= sizes[a]
+        return out, aux / n_b
+
+    bspec = P(baxes if baxes else None, None, None)
+    espec = P(expert_axis, None, None)
+    out, aux = shard_map(body, mesh=mesh,
+                         in_specs=(bspec, P(), espec, espec, espec),
+                         out_specs=(bspec, P()))(
+        x, p["router"], p["we_gate"], p["we_up"], p["we_down"])
+    if not isinstance(x, DTensor):  # global values in, global values out
+        out, aux = out.full_tensor(), aux.full_tensor()
+    if "shared" in p:
+        out = out + mlp_forward(p["shared"], x)
     return out, aux

@@ -26,6 +26,10 @@ repetition of a stacked group's unit (JAX's scan body) is checkpointed
 per repetition and recomputes the rest; a group run once is not.  The
 recomputed values are the forward's, so the gradients equal those of a
 run without it.
+
+Under a registered mesh the hidden states are pinned to ("batch", "seq",
+None) on entry and after each repetition of a stacked unit
+(``sharding.specs.constrain``, JAX's constraint sites).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.specs import constrain
 from . import attention as attn
 from . import ffn as ffn_lib
 from . import rwkv as rwkv_lib
@@ -237,6 +242,12 @@ def _attention(desc: LayerDesc, p: dict, h: torch.Tensor, ctx: Ctx) -> torch.Ten
 def _ffn(desc: LayerDesc, p: dict, x: torch.Tensor, cfg: ArchConfig):
     """x + the layer's FFN of rms_norm(x, ln2) -> (x, aux loss or None)."""
     h = rms_norm(x, p["ln2"])
+    if desc.ffn == "moe" and cfg.moe_impl == "sharded":
+        out, aux = ffn_lib.moe_forward_sharded(
+            p["ffn"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor,
+            router_softmax=cfg.router_softmax)
+        return x + out, aux
     if desc.ffn == "moe":
         out, aux = ffn_lib.moe_forward(p["ffn"], h, top_k=cfg.top_k,
                                        capacity_factor=cfg.capacity_factor,
@@ -274,6 +285,7 @@ def _unit(descs: tuple, ps: list, x: torch.Tensor, aux: torch.Tensor,
 
 def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx):
     """Run all groups; returns (hidden (B,S,D), total aux loss)."""
+    x = constrain(x, ("batch", "seq", None))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi, g in enumerate(build_plan(cfg)):
         gp = params["groups"][gi]
@@ -288,6 +300,8 @@ def forward(params: dict, x: torch.Tensor, cfg: ArchConfig, ctx: Ctx):
                                           use_reentrant=False)
             else:
                 x, aux_total = _unit(g.descs, ps, x, aux_total, ctx)
+            if g.reps > 1:  # JAX's constraint at the end of its scan body
+                x = constrain(x, ("batch", "seq", None))
     return rms_norm(x, params["final_norm"]), aux_total
 
 

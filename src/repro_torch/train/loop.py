@@ -10,6 +10,15 @@ The parameters' gradients come from ``torch.autograd.grad`` over their
 leaves (each a detached alias with ``requires_grad``), so the state's
 tensors are never mutated by autograd and ``adamw_update`` builds the
 next state as JAX's does.
+
+Under a mesh (``run(mesh=...)``, ``make_train_step(shardings=...)``) the
+state is a tree of DTensors placed by ``optimizer.state_logical_axes``
+and the rules, the batch comes from ``ShardedBatcher(mesh=...)``, and the
+step runs in ``sharding.mesh_mode.MeshMode``.  The loss is reduced to a
+replicated value before autograd (the gradient of the global mean, however
+many unmasked tokens each shard holds), the gradients are laid onto the
+parameters' shardings (the data-parallel reduction), and the new state onto
+the state's shardings: JAX's ``jit`` with ``in_shardings``/``out_shardings``.
 """
 from __future__ import annotations
 
@@ -18,12 +27,15 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.runtime.health import FaultPolicy
 from repro_torch.sharding.compression import (CompressedGrad,
                                               compress_with_error_feedback,
                                               decompress)
+from repro_torch.sharding.mesh_mode import MeshMode
+from repro_torch.sharding.specs import default_rules, shard_tree, tree_shardings
 from . import optimizer as opt
 
 
@@ -53,14 +65,20 @@ def value_and_grad(model, params: Any, batch: dict, compute_dtype=None):
         loss, metrics = model.loss(opt.tree_unflatten(params,
                                                       [cast(p) for p in req]),
                                    batch)
+        if isinstance(loss, DTensor):  # a partial sum over the mesh
+            loss = loss.full_tensor()
         grads = torch.autograd.grad(loss, req)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: (v.full_tensor() if isinstance(v, DTensor) else v).detach()
+               for k, v in metrics.items()}
     return (loss.detach(), metrics), opt.tree_unflatten(params, list(grads))
 
 
 def make_train_step(model, opt_cfg: opt.AdamWConfig,
-                    compute_dtype=None) -> Callable:
-    """Returns (state, batch) -> (state, metrics)."""
+                    compute_dtype=None,
+                    shardings: Optional[opt.TrainState] = None) -> Callable:
+    """Returns (state, batch) -> (state, metrics).  ``shardings`` (a
+    ``TrainState`` of ``NamedSharding``s) runs the step on a state of
+    DTensors and keeps the new state on them."""
 
     def train_step(state: opt.TrainState, batch: dict):
         (loss, metrics), grads = value_and_grad(model, state.params, batch,
@@ -68,7 +86,30 @@ def make_train_step(model, opt_cfg: opt.AdamWConfig,
         new_state = opt.adamw_update(state, grads, opt_cfg)
         return new_state, {"loss": loss, **metrics}
 
-    return train_step
+    if shardings is None:
+        return train_step
+
+    def sharded_step(state: opt.TrainState, batch: dict):
+        with MeshMode():
+            (loss, metrics), grads = value_and_grad(model, state.params, batch,
+                                                    compute_dtype)
+            grads = shard_tree(grads, shardings.params)
+            new_state = shard_tree(opt.adamw_update(state, grads, opt_cfg),
+                                   shardings)
+        return new_state, {"loss": loss, **metrics}
+
+    return sharded_step
+
+
+def state_shardings(model, mesh, rules: dict,
+                    param_dtype=torch.float32,
+                    opt_cfg: Optional[opt.AdamWConfig] = None) -> opt.TrainState:
+    """The ``TrainState`` of ``NamedSharding``s the rules give ``model``'s
+    state on ``mesh`` (the step replicated)."""
+    template = opt.abstract_state(model.abstract_params(param_dtype),
+                                  opt_cfg or opt.AdamWConfig())
+    return tree_shardings(mesh, opt.state_logical_axes(model.logical_axes()),
+                          template, rules)
 
 
 def make_compressed_train_step(model, opt_cfg: opt.AdamWConfig) -> Callable:
@@ -98,23 +139,33 @@ def run(model, data_iter: Callable[[int], dict], loop_cfg: LoopConfig,
         policy: Optional[FaultPolicy] = None,
         preempted: Callable[[], bool] = lambda: False,
         on_remesh: Optional[Callable] = None,
-        param_dtype=torch.float32, device="cuda") -> tuple[opt.TrainState, list]:
+        param_dtype=torch.float32, device="cuda", mesh=None,
+        rules: Optional[dict] = None) -> tuple[opt.TrainState, list]:
     """Train for total_steps with checkpoint/restart + FT hooks.
 
     data_iter(step) -> batch dict on ``device``.  The run resumes from the
     latest checkpoint in ckpt_dir if one exists (crash/preemption restart
     path), restored onto an abstract state; else the parameters are drawn
-    from ``generator`` (``Model.init_params``).  The history holds the
-    first step and every ``log_every``-th: {"step", "loss", "sec"}, ``sec``
-    the host time to issue the step.
+    from ``generator`` (``Model.init_params``).  With ``mesh`` (a
+    DeviceMesh; ``rules`` default to ``default_rules()``) the state is
+    placed on it by :func:`state_shardings`, restored onto it, and the
+    batches are DTensors.  The history holds the first step and every
+    ``log_every``-th: {"step", "loss", "sec"}, ``sec`` the host time to
+    issue the step.
     """
+    shardings = (None if mesh is None else
+                 state_shardings(model, mesh, rules or default_rules(),
+                                 param_dtype, opt_cfg))
     if loop_cfg.ckpt_dir and ckpt.latest_step(loop_cfg.ckpt_dir) is not None:
         template = opt.abstract_state(model.abstract_params(param_dtype), opt_cfg)
-        state, start = ckpt.restore(template, loop_cfg.ckpt_dir, device=device)
+        state, start = ckpt.restore(template, loop_cfg.ckpt_dir, device=device,
+                                    shardings=shardings)
     else:
         params = model.init_params(generator, device, param_dtype)
         state, start = opt.init_state(params, opt_cfg), 0
-    step_fn = make_train_step(model, opt_cfg)
+        if shardings is not None:
+            state = shard_tree(state, shardings)
+    step_fn = make_train_step(model, opt_cfg, shardings=shardings)
     history = []
     for step in range(start, loop_cfg.total_steps):
         t0 = time.monotonic()

@@ -12,8 +12,9 @@ order: dict keys sorted, lists and tuples in order.
 
 ``moment_dtype=torch.bfloat16`` keeps the moments in bfloat16 (the
 float32 master parameters stay in ``params``); the clip's norm is
-float32 whatever the parameters' dtype.  JAX's ``state_logical_axes``
-(the state's sharding) waits for the port's mesh layer.
+float32 whatever the parameters' dtype.  :func:`state_logical_axes`
+gives the state the parameters' sharding (ZeRO via the fsdp axis: the
+update is elementwise).
 """
 from __future__ import annotations
 
@@ -134,6 +135,11 @@ def abstract_state(abstract_params: Any, cfg: AdamWConfig) -> TrainState:
                                             device="meta"), abstract_params)
     return TrainState(step=0, params=params, mu=tree_map(meta, params),
                       nu=tree_map(meta, params))
+
+
+def state_logical_axes(param_axes: Any) -> TrainState:
+    """Optimizer state shards exactly like the parameters."""
+    return TrainState(step=(), params=param_axes, mu=param_axes, nu=param_axes)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

@@ -22,13 +22,10 @@ import math
 
 from repro_torch.core.aeq import handoff_shape
 from repro_torch.kernels.event_conv.ops import EVENT_BYTES
+from repro_torch.launch.roofline import PEAK_BYTES, PEAK_F32
 
 log = logging.getLogger("repro_torch.tune")
 
-# NVIDIA H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside the
-# tensor cores, at the 700 W limit.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 
 _BANKED = ("banked-cuda", "fused-handoff")
 

@@ -95,7 +95,11 @@ def test_port_imports_neither_jax_nor_repro():
                 "train/loop.py", "train/optimizer.py", "checkpoint/ckpt.py",
                 "runtime/health.py", "sharding/compression.py",
                 "data/synthetic.py", "launch/train.py", "launch/lm_train.py",
-                "launch/lm_serve.py"):
+                "launch/lm_serve.py", "sharding/specs.py",
+                "sharding/collectives.py", "sharding/mesh_mode.py",
+                "sharding/overlap.py",
+                "sharding/pipeline.py", "launch/mesh.py", "launch/roofline.py",
+                "launch/op_cost.py", "launch/dryrun.py"):
         assert port / mod in files, mod
     for path in files:
         for mod in _imports(path):

@@ -653,3 +653,65 @@ def test_lm_train_run_resumes_on_card(cuda, tmp_path):
     two, _ = ckpt.restore(opt.abstract_state(model.abstract_params(torch.float32),
                                              ocfg), tmp_path / "a", 2, device=cuda)
     assert two.step == 2
+
+
+@pytest.fixture
+def card_mesh(cuda):
+    """The (1, 1) smoke mesh over NCCL with a world of one on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed, make_smoke_mesh
+    from repro_torch.sharding.specs import set_constraint_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already running")
+    init_distributed("cuda")
+    try:
+        yield make_smoke_mesh("cuda")
+    finally:
+        set_constraint_mesh(None)
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_mesh_collectives_on_card_equal_unsharded(card_mesh):
+    from repro_torch.sharding.compression import compress_topk, decompress, sparse_psum
+    from repro_torch.sharding.overlap import psum_matmul, ring_weight_gather_matmul
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(64, 256, generator=g, device="cuda")
+    w = torch.randn(256, 128, generator=g, device="cuda")
+    assert torch.equal(psum_matmul(x, w, card_mesh, "model").to_local(), x @ w)
+    assert torch.equal(ring_weight_gather_matmul(x, w, card_mesh, "data").to_local(),
+                       x @ w)
+    c = compress_topk(torch.randn(4096, generator=g, device="cuda"), 64)
+    assert torch.equal(sparse_psum(c, card_mesh, "data").to_local(), decompress(c))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-3b", "deepseek-v2-236b"])
+def test_mesh_train_steps_on_card_equal_no_mesh(card_mesh, arch):
+    """Two SMOKE steps on the (1, 1) card mesh, the state placed by the
+    rules, equal the two steps without a mesh bit for bit."""
+    from repro_torch.configs import LM_ARCHS
+    from repro_torch.data.synthetic import ShardedBatcher, TokenStream
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.specs import default_rules, set_constraint_mesh, shard_tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import make_train_step, state_shardings
+    model = build_model(LM_ARCHS[arch].SMOKE)
+    ocfg = opt.AdamWConfig()
+    plain = opt.init_state(model.init_params(torch.Generator().manual_seed(0), "cuda"),
+                           ocfg)
+    sh = state_shardings(model, card_mesh, default_rules())
+    meshed = shard_tree(plain, sh)
+    ts = TokenStream(model.cfg.vocab, seed=0)
+    step_p, step_m = make_train_step(model, ocfg), make_train_step(model, ocfg, shardings=sh)
+    for s in range(2):
+        plain, mp = step_p(plain, ShardedBatcher(ts, 2, 32, device="cuda")(s))
+        set_constraint_mesh(card_mesh, default_rules())
+        meshed, mm = step_m(meshed, ShardedBatcher(ts, 2, 32, device="cuda",
+                                                   mesh=card_mesh)(s))
+        set_constraint_mesh(None)
+        assert torch.equal(mp["loss"], mm["loss"])
+    for a, b in zip(opt.tree_leaves([plain.params, plain.mu, plain.nu]),
+                    opt.tree_leaves([meshed.params, meshed.mu, meshed.nu])):
+        assert torch.equal(a, b.to_local())

@@ -13,6 +13,12 @@ leaf shape (10-36 s per model on one core).
 from __future__ import annotations
 
 import math
+import os
+import subprocess
+import sys
+import textwrap
+import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -325,3 +331,104 @@ def check_remat_equal(case: "ModelCase") -> None:
     assert len(leaves1) == len(leaves0)
     for a, b in zip(leaves1, leaves0):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Multi-process runs: the port's ranks over gloo, JAX on forced devices
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent.parent
+
+# each rank joins the group through a FileStore (no TCP port: pytest-xdist
+# runs files side by side) and finds RANK, WORLD, OUT and init(store, world)
+RANK_PRELUDE = """
+import logging, os, sys, warnings
+from pathlib import Path
+logging.disable(logging.WARNING)
+warnings.filterwarnings("ignore")
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+RANK = int(os.environ["RANK"])
+WORLD = int(os.environ["WORLD_SIZE"])
+OUT = Path(os.environ["OUT_DIR"])
+
+def init(store, world, rank=None):
+    dist.init_process_group("gloo", store=dist.FileStore(str(store), world),
+                            rank=RANK if rank is None else rank,
+                            world_size=world)
+
+init(OUT / "store", WORLD)
+"""
+
+
+def _env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "XLA_FLAGS")}
+    env.update(PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu", **extra)
+    return env
+
+
+def _wait_all(procs: list, logs: list, timeout: float) -> list[str]:
+    """Wait for every process (killing all at the deadline or on return);
+    their stdouts, or an AssertionError with the failures' stderr."""
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"processes still running after {timeout} s:\n"
+                             + "\n".join(Path(e).read_text()[-2000:]
+                                         for _, e in logs)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError("\n".join(
+            f"process {i} exited {rc}:\n{Path(logs[i][1]).read_text()[-3000:]}"
+            for i, rc in bad))
+    return [Path(o).read_text() for o, _ in logs]
+
+
+def start_ranks(code: str, world: int, out_dir: Path) -> tuple[list, list]:
+    """Start ``code`` (after :data:`RANK_PRELUDE`) in ``world`` processes."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = RANK_PRELUDE + textwrap.dedent(code)
+    procs, logs = [], []
+    for r in range(world):
+        o, e = out_dir / f"rank{r}.out", out_dir / f"rank{r}.err"
+        with open(o, "w") as fo, open(e, "w") as fe:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", src], stdout=fo, stderr=fe, cwd=REPO,
+                env=_env(RANK=str(r), WORLD_SIZE=str(world),
+                         OUT_DIR=str(out_dir))))
+        logs.append((o, e))
+    return procs, logs
+
+
+def start_jax(code: str, devices: int, out_dir: Path) -> tuple[list, list]:
+    """Start ``code`` in a JAX process with ``devices`` forced CPU devices;
+    it finds its output directory in ``OUT``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = ("import os\nfrom pathlib import Path\nOUT = Path(os.environ['OUT_DIR'])\n"
+           + textwrap.dedent(code))
+    o, e = out_dir / "jax.out", out_dir / "jax.err"
+    env = _env(OUT_DIR=str(out_dir))
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
+    with open(o, "w") as fo, open(e, "w") as fe:
+        proc = subprocess.Popen([sys.executable, "-c", src], stdout=fo,
+                                stderr=fe, cwd=REPO, env=env)
+    return [proc], [(o, e)]
+
+
+def finish(started: list[tuple[list, list]], timeout: float = 120.0) -> list[str]:
+    """Wait for every group :func:`start_ranks`/:func:`start_jax` started."""
+    procs = [p for ps, _ in started for p in ps]
+    logs = [lg for _, ls in started for lg in ls]
+    return _wait_all(procs, logs, timeout)
