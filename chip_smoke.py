@@ -3,11 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-threshold OTHER/threshold_pool.cu ...
+    python3 chip_smoke.py --stress-emit SECONDS
 
 The second form only builds the given base-mode threshold sources beside
 this checkout's, holds each against the plain version and times them in
 turns at the FULL forward's shapes (another commit's kernel, or a probe
-build).
+build).  The third relaunches the emit-mode threshold kernel at every
+configuration of phase 3 (fresh seeded inputs, each relaunched into
+buffers filled with stale bits, back to back and one at a time on an idle
+card) for about SECONDS and exits non-zero on any output that differs from
+the plain version: a search for a rare cross-CTA race in the kernel's
+cluster exchange, which one pass of phase 3 cannot see.
 
 Phases (any failure exits non-zero before the result line):
 
@@ -339,7 +345,8 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err = (a.double() - b.double()).abs().max().item()
         if not torch.equal(a, b):
-            fail(f"{name}: kernel != plain version (max abs err {err})")
+            fail(f"{name}: kernel != plain version (max abs err {err}; "
+                 f"{where_differ(a, b)})")
         kernel = name.split()[0]
         worst[kernel] = max(worst.get(kernel, 0.0), err)
 
@@ -393,6 +400,15 @@ def check_kernels(dev) -> dict:
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
+
+
+def where_differ(a, b, n: int = 6) -> str:
+    """How many elements of two same-shaped tensors differ, and the first
+    few of them as index: got/want."""
+    bad = (a != b).nonzero()
+    first = ", ".join(f"{tuple(i)}: {a[tuple(i)].item()}/{b[tuple(i)].item()}"
+                      for i in bad[:n].tolist())
+    return f"{len(bad)} of {a.numel()} differ; index: got/want {first}"
 
 
 def rail_tile(g, shape, dtype, dev):
@@ -524,6 +540,15 @@ def check_banked_and_emit(g, dev, same) -> None:
                                            emit_capacity=cap)
             etag = f"{tag} Q={q} C={c} pool={pool} capacity={cap}"
             same(f"threshold_pool_emit vm {etag}", vm_k, vm_r)
+            torch.cuda.synchronize()
+            # name every output that differs, not only the first: whether
+            # count and seg_counts differ too tells a rank from a placement
+            wrong = [f"{name}: {where_differ(a, b)}"
+                     for name, a, b in zip(names, outs, want)
+                     if a is not None and not torch.equal(a, b)]
+            if wrong:
+                fail(f"threshold_pool_emit {etag}: kernel != plain version "
+                     f"({'; '.join(wrong)})")
             for name, a, b in zip(names, outs, want):
                 if a is not None:
                     same(f"threshold_pool_emit {name} {etag}", a, b)
@@ -3216,6 +3241,90 @@ def time_threshold(dev, card) -> list:
     return records
 
 
+EMIT_CASES = [(k, dtype, q, c, pool, caps)
+              for k in (1, 3, 5) for dtype in ("float32", "int16", "int8")
+              for q in (B, 1)
+              for c, pool, caps in ((8, None, (1, 16, 256, 784)),
+                                    (8, 3, (1, 16, 100, 256)),
+                                    (5, 3, (1, 100)))]
+
+
+def stress_emit(seconds: float) -> int:
+    """Relaunch the emit kernel at every configuration of phase 3 for about
+    ``seconds``: half of them back to back into the same stale buffers,
+    half one launch at a time with the card idle in between (as phase 3
+    launches it).  Prints launches and differing outputs per case; exits
+    1 on any difference."""
+    import torch
+
+    from repro_torch.core.geometry import ConvGeometry
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.threshold_pool.kernel import \
+        threshold_pool_cuda_emit
+    from repro_torch.kernels.threshold_pool.ref import threshold_pool_tile_ref
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    runtime.build_all()
+    g = torch.Generator().manual_seed(11)
+    tally = {}  # case -> [launches, differing launches]
+
+    def burst(case, idle: bool, reps: int) -> None:
+        k, dt, q, c, pool, caps = case
+        dtype = getattr(torch, dt)
+        hh = k // 2
+        vm = rand_tile(g, (q, 28 + 2 * hh, 28 + 2 * hh, c), dtype, dev)
+        bias = rand_kernel(g, (c,), dtype, dev)
+        fired = (torch.rand((q, 28, 28, c), generator=g) < 0.1).to(dev)
+        args = dict(v_t=0.5 if dtype == torch.float32 else 20, pool=pool,
+                    halo=(hh, hh), emit_geometry=ConvGeometry(k, k))
+        for cap in caps:
+            want = threshold_pool_tile_ref(vm.clone(), bias, fired, **args,
+                                           emit_capacity=cap)
+            outs = threshold_pool_cuda_emit(vm.clone(), bias, fired, **args,
+                                            emit_capacity=cap)
+            bad = torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(reps):
+                for o in outs:
+                    if o is not None:
+                        o.fill_(1)
+                if idle:
+                    torch.cuda.synchronize()
+                    time.sleep(0.002)
+                outs = threshold_pool_cuda_emit(
+                    vm.clone(), bias, fired, **args, emit_capacity=cap,
+                    fired_out=outs[0], pooled_out=outs[1],
+                    masks_out=outs[2], count_out=outs[3],
+                    seg_counts_out=outs[4])
+                diff = torch.zeros((), dtype=torch.bool, device=dev)
+                for a, b in zip(outs, want):
+                    if a is not None:
+                        diff |= (a != b).any()
+                bad += diff
+            key = f"k={k} {dt} Q={q} C={c} pool={pool} capacity={cap}"
+            t = tally.setdefault(key, [0, 0])
+            t[0] += reps
+            t[1] += int(bad)
+
+    t0 = time.perf_counter()
+    rounds = 0
+    while time.perf_counter() - t0 < seconds:
+        idle = rounds % 2 == 1
+        for case in EMIT_CASES:
+            burst(case, idle, 10 if idle else 100)
+        rounds += 1
+    launches = sum(t[0] for t in tally.values())
+    differing = sum(t[1] for t in tally.values())
+    for key, (n, bad) in tally.items():
+        if bad:
+            print(f"stress-emit {key}: {bad} of {n} launches differ")
+    print(f"stress-emit: {launches} launches over {len(tally)} cases in "
+          f"{rounds} rounds ({time.perf_counter() - t0:.1f} s), {differing} "
+          f"differ from the plain version [{card}]")
+    return 1 if differing else 0
+
+
 def compare_threshold(sources: list[str]) -> int:
     """``--compare-threshold A.cu [B.cu ...]``: build each given
     ``threshold_pool.cu`` (another checkout's, or a probe build) beside
@@ -3543,6 +3652,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     if sys.argv[1:2] == ["--compare-threshold"]:
         return compare_threshold(sys.argv[2:])
+    if sys.argv[1:2] == ["--stress-emit"]:
+        return stress_emit(float(sys.argv[2]))
     if sys.argv[1:2] == ["--lm"]:
         return lm_main()
     if sys.argv[1:2] == ["--lm-train"]:
