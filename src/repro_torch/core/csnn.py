@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from repro_torch.runtime.spans import span
+
 from .encoding import mttfs_thresholds, multi_threshold_encode
 from .event_conv import conv2d_same
 from .aeq import StreamState
@@ -246,7 +248,9 @@ def snn_step_chunk(params: dict, state: CSNNState,
     the events into frames).  Each conv layer consumes the chunk from its
     carry; the head drive accumulates the last conv layer's spikes.
     Returns the new state, or (state, [LayerStats, ...]) with
-    ``collect_stats``.
+    ``collect_stats`` (without it no layer computes its statistics).
+    Each conv layer's runner call is the span ``csnn.conv<i>`` (``i``
+    its index among the conv layers) in a profiler trace.
 
     The layer boundary: when the next conv layer is pinned to
     ``"fused-handoff"``, the producer emits that layer's
@@ -269,8 +273,10 @@ def snn_step_chunk(params: dict, state: CSNNState,
             run = (run_conv_layer_batched_chunk_streamed
                    if isinstance(x, StreamState)  # layer 0 only
                    else run_conv_layer_batched_chunk)
-            x, carry, st = run(x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
-                               state.convs[ci], emit=emit)
+            with span(f"conv{ci}"):
+                x, carry, st = run(x, p["w"], p["b"], cfg.v_t,
+                                   plan.layers[ci], state.convs[ci],
+                                   emit=emit, collect_stats=collect_stats)
             new_convs.append(carry)
             stats.append(st)
             ci += 1
@@ -285,14 +291,16 @@ def snn_readout(params: dict, state: CSNNState, cfg: CSNNConfig,
                 plan: Optional[NetworkPlan] = None) -> torch.Tensor:
     """Classification-unit readout: drive @ W + T * b, never thresholded
     (:func:`scheduler.fc_readout`; through the event-driven sparse head
-    when ``plan.fc_capacity`` is set)."""
+    when ``plan.fc_capacity`` is set); the span ``csnn.readout`` in a
+    profiler trace."""
     capacity = plan.fc_capacity if plan is not None else None
     logits = None
-    for idx, spec in enumerate(cfg.layers):
-        if not isinstance(spec, ConvSpec):
-            p = params[f"fc{idx}"]
-            logits = fc_readout(state.fc_drive, p["w"], p["b"], cfg.t_steps,
-                                capacity)
+    with span("readout"):
+        for idx, spec in enumerate(cfg.layers):
+            if not isinstance(spec, ConvSpec):
+                p = params[f"fc{idx}"]
+                logits = fc_readout(state.fc_drive, p["w"], p["b"],
+                                    cfg.t_steps, capacity)
     if logits is None:
         raise ValueError("cfg has no FC head layer")
     return logits
@@ -326,31 +334,37 @@ def snn_apply_batched(
     """Event-driven m-TTFS inference for a sample batch.
 
     in_spikes: (B, T, H, W, C_in) bool on the parameters' device.  Returns
-    (logits (B, n_classes), [LayerStats, ...]) or logits alone.  ``plan``
-    carries the per-layer sizing (``plan_network``; its defaults when
-    None).  Chaining ``plan.chunk_steps`` chunks is exact for every
-    chunking.
+    (logits (B, n_classes), [LayerStats, ...]) or logits alone, in which
+    case no statistic is computed.  ``plan`` carries the per-layer sizing
+    (``plan_network``; its defaults when None).  Chaining
+    ``plan.chunk_steps`` chunks is exact for every chunking.
     """
     plan = plan_network(cfg) if plan is None else plan.validate(cfg)
-    state, stats = _run_chunks(params, in_spikes, cfg, plan)
+    state, stats = _run_chunks(params, in_spikes, cfg, plan, collect_stats)
     logits = snn_readout(params, state, cfg, plan)
     return (logits, stats) if collect_stats else logits
 
 
 def _run_chunks(params: dict, in_spikes: torch.Tensor, cfg: CSNNConfig,
-                plan: NetworkPlan) -> tuple[CSNNState, list]:
+                plan: NetworkPlan, collect_stats: bool
+                ) -> tuple[CSNNState, Optional[list]]:
     """``snn_step_chunk`` over the whole window from a fresh state: the
-    final state (its ``fc_drive`` per sample) and the merged LayerStats."""
+    final state (its ``fc_drive`` per sample) and the merged LayerStats,
+    or None without ``collect_stats``."""
     chunk = plan.chunk_steps
     state = init_state(params, cfg, plan, in_spikes.shape[0],
                        device=in_spikes.device)
     chunk_stats = []
     for k in range(0, cfg.t_steps, chunk):
-        state, stats = snn_step_chunk(
-            params, state, in_spikes[:, k:k + chunk], cfg, plan,
-            collect_stats=True)
-        chunk_stats.append(stats)
-    return state, _merge_chunk_stats(chunk_stats)
+        out = snn_step_chunk(params, state, in_spikes[:, k:k + chunk], cfg,
+                             plan, collect_stats=collect_stats)
+        if collect_stats:
+            state, stats = out
+            chunk_stats.append(stats)
+        else:
+            state = out
+    return state, (_merge_chunk_stats(chunk_stats) if collect_stats
+                   else None)
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -451,11 +465,12 @@ def snn_apply_sharded(
         with (torch.cuda.stream(stream) if stream is not None
               else contextlib.nullcontext()):
             x = _to(in_spikes[i * per:(i + 1) * per], dev)
-            state, st = _run_chunks(placed[dev], x, cfg, plan)
+            state, st = _run_chunks(placed[dev], x, cfg, plan, collect_stats)
             drives.append(_to(state.fc_drive, head))
-            stats.append([s._replace(**{
-                f: _to(getattr(s, f), head)
-                for f in _SAMPLE_FIELDS}) for s in st])
+            if collect_stats:
+                stats.append([s._replace(**{
+                    f: _to(getattr(s, f), head)
+                    for f in _SAMPLE_FIELDS}) for s in st])
         if stream is not None:
             done.append((dev, stream.record_event()))
     for dev, ev in done:

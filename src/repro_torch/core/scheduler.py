@@ -132,7 +132,9 @@ def run_conv_layer_batched_chunk(
     carry: ConvCarry,
     *,
     emit: Emit = None,
-) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
+    collect_stats: bool = True,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry,
+           Optional[LayerStats]]:
     """Step one conv layer through a chunk of time steps from ``carry``.
 
     spikes_in: (B, t_chunk, H, W, C_in) bool dense frames, or the
@@ -140,7 +142,8 @@ def run_conv_layer_batched_chunk(
     when it is pinned to ``"fused-handoff"``).  ``emit``: the next layer's
     (capacity, geometry) when that layer is pinned to ``"fused-handoff"``.
     Returns (spikes_out (B, t_chunk, H', W', C_out) bool — or, with
-    ``emit``, the carrier of those spikes — new carry, chunk LayerStats).
+    ``emit``, the carrier of those spikes — new carry, chunk LayerStats,
+    or None without ``collect_stats``: then no statistic is computed).
     Chaining chunks equals one whole-T call.
     """
     variant = lp.resolve_variant()
@@ -156,7 +159,7 @@ def run_conv_layer_batched_chunk(
         else:  # the network edge: dense input frames
             ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
         return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
-                                       carry, emit)
+                                       carry, emit, collect_stats)
     b_sz, t_steps, h, w, c_in = spikes_in.shape
     fmaps = spikes_in.permute(1, 0, 4, 2, 3)  # (t, B, C_in, H, W)
     if variant == "banked-cuda":
@@ -164,10 +167,12 @@ def run_conv_layer_batched_chunk(
     else:
         events, counts = _queue_events(
             build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry), lp)
-    sparsity = 1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
+    sparsity = (1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
+                if collect_stats else None)
     return _run_chunk_from_events(
         events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
+        kernels, bias, v_t, lp, carry, variant=variant, emit=emit,
+        collect_stats=collect_stats)
 
 
 def run_conv_layer_batched_chunk_streamed(
@@ -179,7 +184,9 @@ def run_conv_layer_batched_chunk_streamed(
     carry: ConvCarry,
     *,
     emit: Emit = None,
-) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
+    collect_stats: bool = True,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry,
+           Optional[LayerStats]]:
     """:func:`run_conv_layer_batched_chunk` over ingested input events.
 
     stream: :class:`StreamState` with banks (B, t_chunk, C_in, n_banks,
@@ -199,7 +206,7 @@ def run_conv_layer_batched_chunk_streamed(
         ho = fused_handoff_from_banks(stream.banks, lp.capacity, (h, w),
                                       lp.geometry)
         return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
-                                       carry, emit)
+                                       carry, emit, collect_stats)
     frames = stream_frames(stream, (h, w), lp.geometry)  # (B, t, C_in, H, W)
     fmaps = frames.transpose(0, 1)                       # (t, B, C_in, H, W)
     if variant == "banked-cuda":
@@ -212,10 +219,12 @@ def run_conv_layer_batched_chunk_streamed(
                                geometry=lp.geometry)
         events, counts = _queue_events(BatchedEventQueue(
             *(None if x is None else x.transpose(0, 1) for x in queues)), lp)
-    sparsity = 1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
+    sparsity = (1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
+                if collect_stats else None)
     return _run_chunk_from_events(
         events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant, emit=emit)
+        kernels, bias, v_t, lp, carry, variant=variant, emit=emit,
+        collect_stats=collect_stats)
 
 
 def _bank_events(fmaps: torch.Tensor, lp: LayerPlan
@@ -241,23 +250,27 @@ def _queue_events(queues: BatchedEventQueue, lp: LayerPlan
 
 def _run_chunk_from_carrier(ho: FusedHandoff, hw: tuple[int, int],
                             kernels, bias, v_t, lp: LayerPlan,
-                            carry: ConvCarry, emit: Emit):
+                            carry: ConvCarry, emit: Emit,
+                            collect_stats: bool):
     """The fused-handoff chunk over carrier ``ho``; its demand counts give
     the dense frames' zero share exactly (integer sums below 2**24 in
     float32)."""
     h, w = hw
     t_steps, c_in, b_sz = ho.masks.shape[:3]
-    total = ho.count.to(torch.float32).sum(dim=(0, 2))
-    sparsity = 1.0 - total / float(t_steps * h * w * c_in)
+    sparsity = None
+    if collect_stats:
+        total = ho.count.to(torch.float32).sum(dim=(0, 2))
+        sparsity = 1.0 - total / float(t_steps * h * w * c_in)
     return _run_chunk_from_events(
         ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant="fused-handoff", emit=emit)
+        kernels, bias, v_t, lp, carry, variant="fused-handoff", emit=emit,
+        collect_stats=collect_stats)
 
 
 def _run_chunk_from_events(
     events: Union[BatchedEventQueue, torch.Tensor],
     counts: torch.Tensor,
-    sparsity: torch.Tensor,
+    sparsity: Optional[torch.Tensor],
     shape: tuple[int, int, int, int, int],
     kernels: torch.Tensor,
     bias: torch.Tensor,
@@ -267,10 +280,13 @@ def _run_chunk_from_events(
     *,
     variant: str,
     emit: Emit,
-) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry, LayerStats]:
+    collect_stats: bool,
+) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry,
+           Optional[LayerStats]]:
     """Shared chunk body: consume the pre-built (t, B, C_in) event sets —
     queues for the queue variants, the padded bank masks (t, C_in, B,
-    n_banks, HB+2, WB+2) for the banked ones."""
+    n_banks, HB+2, WB+2) for the banked ones.  Without ``collect_stats``
+    no LayerStats (the third result is None; ``sparsity`` is then None)."""
     b_sz, t_steps, h, w, c_in = shape
     single = b_sz == 1  # one queue per launch: the single-queue kernels
     c_out = kernels.shape[-1]
@@ -360,21 +376,26 @@ def _run_chunk_from_events(
         return x.permute(2, 1, 3, 4, 0, 5).reshape(
             x.shape[2], t_steps, x.shape[3], x.shape[4], c_out)
 
-    spikes_out = merge(spikes)
-    stats = LayerStats(
-        in_spike_counts=counts.transpose(0, 1),  # (B, t, C_in)
-        out_spike_counts=spikes_out.sum(dim=(2, 3), dtype=torch.int32),
-        in_sparsity=sparsity,
-        event_block=lp.block_e,
-        event_par=lp.event_par,
-    )
     if emit is not None:
-        return (FusedHandoff(masks=out_masks,
-                             count=out_count.transpose(1, 2).contiguous()),
-                new_carry, stats)
-    if pooled is not None:
-        return merge(pooled), new_carry, stats
-    return spikes_out, new_carry, stats
+        out = FusedHandoff(masks=out_masks,
+                           count=out_count.transpose(1, 2).contiguous())
+    elif pooled is not None:
+        out = merge(pooled)
+    else:
+        out = merge(spikes)
+    stats = None
+    if collect_stats:
+        # the pre-pool spikes: a pooled or carrier output is merged again
+        dense = merge(spikes) if emit is not None or pooled is not None \
+            else out
+        stats = LayerStats(
+            in_spike_counts=counts.transpose(0, 1),  # (B, t, C_in)
+            out_spike_counts=dense.sum(dim=(2, 3), dtype=torch.int32),
+            in_sparsity=sparsity,
+            event_block=lp.block_e,
+            event_par=lp.event_par,
+        )
+    return out, new_carry, stats
 
 
 def run_conv_layer_planned(

@@ -151,7 +151,8 @@ def serve_csnn(args) -> int:
                  f"refills={st['refills']} "
                  f"slot_utilization={engine.slot_utilization:.0%} "
                  f"wait_ms_max={st['wait_ms_max']:.1f} "
-                 f"deadline_misses={st['deadline_misses']}")
+                 f"deadline_misses={st['deadline_misses']} "
+                 + _host_path(st, st["admitted"], st["chunks"]))
         if args.stream:
             extra += (f"\nstream: events={n_events} "
                       f"({n_events / dt:.0f} events/s admitted)")
@@ -160,7 +161,8 @@ def serve_csnn(args) -> int:
         extra = (f"engine: batches={st['batches']} "
                  f"full={st['flushes_full']} "
                  f"deadline={st['flushes_deadline']} "
-                 f"padded_slots={st['padded_slots']}")
+                 f"padded_slots={st['padded_slots']} "
+                 + _host_path(st, st["requests"], st["batches"]))
     for i, p in enumerate(logits.argmax(dim=-1).tolist()):
         print(f"req {i}: class {p}")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -182,6 +184,14 @@ def serve_csnn(args) -> int:
                   f"peak_queue={int(st.in_spike_counts.max())} "
                   f"capacity={lp.capacity} block_e={st.event_block}")
     return 0
+
+
+def _host_path(stats: dict, requests: int, launches: int) -> str:
+    """The engine's mean queue wait per request and host ms per launch
+    (batch or chunk), from its counters."""
+    wait = stats["queue_wait_ms_sum"] / max(requests, 1)
+    launch = stats["launch_ms_sum"] / max(launches, 1)
+    return f"queue_wait_ms_mean={wait:.2f} launch_ms_mean={launch:.2f}"
 
 
 def lm_inputs(cfg, requests: int, prompt_len: int, generator):

@@ -41,6 +41,20 @@ Admitting and stepping read nothing back from the device.  On the CPU
 (plain path) the work is done when the call returns, and the loop yields
 once per batch or chunk instead.
 
+Spans and counters.  In a ``torch.profiler`` trace, each batch (each
+chunk in continuous mode) is the span ``csnn.engine.launch`` from the
+stack of its inputs to the enqueued copy-out, then, once the device is
+done, ``csnn.engine.resolve`` over the futures' results; both carry the
+sequence number (``seq``), the real requests (``requests``) and the
+padded rows (``padded``).  The flusher handles one batch at a time, so
+the stretch from a launch's end to its resolve is the device wait, and
+from a resolve's end to the next launch the collection of requests.
+Continuous mode also marks each request's encode as
+``csnn.engine.encode``.  Always on, in ``stats``: ``queue_wait_ms_sum``
+sums each request's ms from ``submit_nowait`` to the launch that
+carries it (admission, in continuous mode), and ``launch_ms_sum`` the
+host ms inside every launch stretch.
+
 Per-request logits equal ``snn_apply_batched`` on the same requests in
 every mode: rows are independent and the FC head sums the exact-integer
 drive in float64 whatever the batch shape (tests/test_torch_engine.py,
@@ -64,6 +78,7 @@ from repro_torch.core.csnn import (CSNNConfig, CSNNState, ConvSpec,
 from repro_torch.core.plan import NetworkPlan, plan_network, snap_t_chunk
 from repro_torch.core.scheduler import ConvCarry
 from repro_torch.data.dvs import events_to_banks
+from repro_torch.runtime.spans import span
 
 _STOP = object()
 
@@ -166,7 +181,9 @@ class CSNNEngine:
                       # continuous-mode slot table observability
                       "chunks": 0, "admitted": 0, "retired": 0, "refills": 0,
                       "slot_steps_busy": 0, "slot_steps_total": 0,
-                      "wait_ms_max": 0.0, "deadline_misses": 0}
+                      "wait_ms_max": 0.0, "deadline_misses": 0,
+                      # host-path counters of every batch or chunk
+                      "queue_wait_ms_sum": 0.0, "launch_ms_sum": 0.0}
         if serve_cfg.continuous:
             self._slots = serve_cfg.slots or serve_cfg.max_batch
             requested = serve_cfg.t_chunk or (
@@ -449,17 +466,26 @@ class CSNNEngine:
         n = len(batch)
         tile = self.plan.batch_tile
         padded = -(-n // tile) * tile
-        imgs = torch.stack([img for img, *_ in batch])
-        if padded > n:  # zero images spike nowhere; pure pad rows
-            imgs = torch.cat([imgs, imgs.new_zeros((padded - n,)
-                                                   + imgs.shape[1:])])
-        logits = self._infer(imgs)
+        tags = {"seq": self.stats["batches"], "requests": n,
+                "padded": padded}
+        now = asyncio.get_running_loop().time()
+        self.stats["queue_wait_ms_sum"] += sum(
+            now - arrived for *_, arrived in batch) * 1e3
+        t0 = time.perf_counter()
+        with span("engine.launch", **tags):
+            imgs = torch.stack([img for img, *_ in batch])
+            if padded > n:  # zero images spike nowhere; pure pad rows
+                imgs = torch.cat([imgs, imgs.new_zeros((padded - n,)
+                                                       + imgs.shape[1:])])
+            logits = self._infer(imgs)
+        self.stats["launch_ms_sum"] += (time.perf_counter() - t0) * 1e3
         await self._device_done()
-        self.stats["batches"] += 1
-        self.stats["padded_slots"] += padded - n
-        for i, (_, fut, _) in enumerate(batch):
-            if not fut.done():
-                fut.set_result(logits[i])
+        with span("engine.resolve", **tags):
+            self.stats["batches"] += 1
+            self.stats["padded_slots"] += padded - n
+            for i, (_, fut, _) in enumerate(batch):
+                if not fut.done():
+                    fut.set_result(logits[i])
 
     # ------------------------------------------- continuous slot-level refill
     async def _continuous_loop(self) -> None:
@@ -487,7 +513,8 @@ class CSNNEngine:
             is enqueued (host work while the device runs), or at its
             admission if it arrived after that."""
             if entry[0] is None:
-                entry[0] = self._encode(entry[1])
+                with span("engine.encode"):
+                    entry[0] = self._encode(entry[1])
             return entry[0]
 
         def drain_nowait():
@@ -516,6 +543,7 @@ class CSNNEngine:
                 slot_t[i] = 0
                 active[i], admit[i] = True, True
                 wait_ms = (now - entry[3]) * 1e3
+                self.stats["queue_wait_ms_sum"] += wait_ms
                 self.stats["admitted"] += 1
                 self.stats["wait_ms_max"] = max(self.stats["wait_ms_max"],
                                                 wait_ms)
@@ -540,10 +568,15 @@ class CSNNEngine:
             # occupancy bucket that holds them
             bucket = next(bb for bb in self._buckets if bb >= len(act))
             finished = [i for i in act if slot_t[i] + tc >= T]
-            state, logits = self._step(
-                state, act, bucket,
-                [slot_in[i][slot_t[i]:slot_t[i] + tc] for i in act],
-                [admit[i] for i in act], readout=bool(finished))
+            tags = {"seq": self.stats["chunks"], "requests": len(act),
+                    "padded": bucket}
+            t0 = time.perf_counter()
+            with span("engine.launch", **tags):
+                state, logits = self._step(
+                    state, act, bucket,
+                    [slot_in[i][slot_t[i]:slot_t[i] + tc] for i in act],
+                    [admit[i] for i in act], readout=bool(finished))
+            self.stats["launch_ms_sum"] += (time.perf_counter() - t0) * 1e3
             self.stats["chunks"] += 1
             self.stats["slot_steps_busy"] += len(act)
             self.stats["slot_steps_total"] += bucket
@@ -556,12 +589,13 @@ class CSNNEngine:
             await self._device_done()
             for i in act:
                 slot_t[i] += tc
-            for i in finished:  # retire
-                if not slot_fut[i].done():
-                    slot_fut[i].set_result(logits[i])
-                active[i] = False
-                slot_fut[i] = slot_in[i] = None
-                self.stats["retired"] += 1
+            with span("engine.resolve", **tags):
+                for i in finished:  # retire
+                    if not slot_fut[i].done():
+                        slot_fut[i].set_result(logits[i])
+                    active[i] = False
+                    slot_fut[i] = slot_in[i] = None
+                    self.stats["retired"] += 1
         # Failsafe: anything that slipped in after the final drain check is
         # failed explicitly so no future ever hangs.
         drain_nowait()
