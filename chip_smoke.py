@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-threshold OTHER/threshold_pool.cu ...
     python3 chip_smoke.py --stress-emit SECONDS
+    python3 chip_smoke.py --crossover
 
 The second form only builds the given base-mode threshold sources beside
 this checkout's, holds each against the plain version and times them in
@@ -13,7 +14,10 @@ configuration of phase 3 (fresh seeded inputs, each relaunched into
 buffers filled with stale bits, back to back and one at a time on an idle
 card) for about SECONDS and exits non-zero on any output that differs from
 the plain version: a search for a rare cross-CTA race in the kernel's
-cluster exchange, which one pass of phase 3 cannot see.
+cluster exchange, which one pass of phase 3 cannot see.  The fourth
+builds, holds the interlaced conv unit on both its paths against the plain
+version (phase 3's ``check_interlaced_gather``) and prints the crossover
+table and the offline plan's launch counts of phase 7.
 
 Phases (any failure exits non-zero before the result line):
 
@@ -40,10 +44,15 @@ Phases (any failure exits non-zero before the result line):
    channels for k in {1, 3, 5} on 3 tiles and on one; the interlaced conv
    unit the same way, at the serve plan's event_par and queue depth, and
    with 4 input channels at event_par 8, 4, 2, 16 and 6, unpadded queues
-   (mixed groups) and repeated coordinates;
+   (mixed groups) and repeated coordinates, each batched case also on the
+   tile path; the tile path as the wrapper chooses it at the offline
+   benchmark's conv shapes (f32/i16/i8, padded and mixed groups,
+   repeated coordinates, fresh and in place) and one launch on each side
+   of the crossover, each counted on its own path;
 3b. the auditor (``repro_torch.analysis``): the plan contracts, the hazard
    proofs, the kernel audit with ``device="cuda"`` (every wrapper's
-   operands in red zones; each of the seven kernels must count a launch),
+   operands in red zones; each of the seven kernels and the tile path must
+   count a launch),
    the lint and the self-test, one line per pass with its obligations per
    rule and its time; then ``python -m repro_torch.analysis --only kernels
    --device cuda`` under ``compute-sanitizer --tool memcheck`` with
@@ -203,7 +212,13 @@ Phases (any failure exits non-zero before the result line):
    default bfloat16 cache: prefill tokens/s, decode ms per step and the
    device's busy share over 8 decode steps; and the training phase's
    gemma3-1b FULL ms per step, tokens/s, busy share and peak memory, beside
-   the card's name and power limit.
+   the card's name and power limit; last the crossover table of the
+   batched interlaced unit (the patch gather against the tile path at the
+   offline benchmark's three conv shapes, Q from 8 to 1024, and the tile
+   path at conv1, Q=1024, beside its bound, plain version and
+   ``F.conv2d``), and the offline benchmark's plan at B=1024 with exact
+   launch counts (every batched interlaced launch on the tile path, the
+   forward equal to ``event_par=1``'s; one sample never on it).
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -725,7 +740,8 @@ def check_interlaced_gather(g, dev, same) -> None:
     from repro_torch.core.aeq import build_aeq_batched, segment_pad
     from repro_torch.core.geometry import ConvGeometry
     from repro_torch.kernels.event_conv.kernel import (
-        event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
+        TILE_MAX_BYTES, TILE_MAX_PAR, event_conv_cuda_interlaced,
+        event_conv_cuda_interlaced_batched)
     from repro_torch.kernels.event_conv.ref import (
         event_conv_ref_interlaced, event_conv_ref_interlaced_batched)
 
@@ -738,6 +754,13 @@ def check_interlaced_gather(g, dev, same) -> None:
         event_conv_cuda_interlaced_batched(got, coords, valid, kern,
                                            event_par=ep, out=got)
         same(f"event_conv_interlaced in place {tag}", got, want)
+        if ep <= TILE_MAX_PAR and vm[0].numel() * vm.element_size() \
+                <= TILE_MAX_BYTES:  # the tile path pinned, below the crossover
+            same(f"event_conv_interlaced tile {tag}",
+                 pinned(vm, coords, valid, kern, ep, tile=True), want)
+            got = vm.clone()
+            pinned(got, coords, valid, kern, ep, tile=True, out=got)
+            same(f"event_conv_interlaced tile in place {tag}", got, want)
         c0, v0 = coords[:, 0].contiguous(), valid[:, 0].contiguous()
         want = event_conv_ref_interlaced(vm[0], c0, v0, kern, event_par=ep)
         same(f"event_conv_interlaced_single {tag}", event_conv_cuda_interlaced(
@@ -782,6 +805,250 @@ def check_interlaced_gather(g, dev, same) -> None:
         check(f"repeated coords ep={ep}",
               rand_tile(g, (2, 12, 12, 8), torch.float32, dev), coords,
               valid, rand_kernel(g, (3, 3, 3, 8), torch.float32, dev), ep)
+    check_tile_path(g, dev, same)
+
+
+def pinned(vm, coords, valid, kern, ep, *, tile: bool, out=None):
+    """The batched interlaced unit on the path ``tile`` pins, whatever Q:
+    the wrapper's launch with its path given (``kernel._launch``)."""
+    import torch
+
+    from repro_torch.kernels.event_conv import kernel as ek
+    out = torch.empty_like(vm) if out is None else out
+    return ek._launch(vm, coords, valid, kern, out, ep, single=False,
+                      tile=tile)
+
+
+#: the offline benchmark plan's conv layers (``bench/configs/csnn_paper``):
+#: (name, C_in, map side, tile channels, capacity, event_par, events per
+#: sample and step over C_in x side^2 slots, PERF.md section 4)
+OFFLINE_CONVS = (("conv0", 1, 28, 8, 784, 8, 221.6 / 784),
+                 ("conv1", 32, 28, 8, 784, 8, 3965.6 / (32 * 784)),
+                 ("conv2", 32, 10, 5, 100, 4, 860.0 / (32 * 100)))
+
+
+def offline_queues(g, dev, c_in, side, cap, ep, density, q, *, pad=True):
+    """coords (C_in, Q, E, 2), valid (C_in, Q, E) of random maps at a conv
+    layer's offline plan: AEQs of capacity ``cap``, segment-padded at
+    ``ep`` unless ``pad`` is False (mixed groups)."""
+    from repro_torch.core.geometry import GEOM_3X3
+    qs = queues_for(g, c_in * q, side, side, density, cap, GEOM_3X3,
+                    ep if pad else 1, dev)
+    return (qs.coords.reshape(c_in, q, -1, 2).contiguous(),
+            qs.valid.reshape(c_in, q, -1).contiguous())
+
+
+def check_tile_path(g, dev, same) -> None:
+    """Phase 3: the tile path of the batched interlaced unit as the wrapper
+    chooses it, at the offline plan's shapes (conv0/conv1/conv2:
+    capacities 784/784/100, event_par 8/8/4, 30x30x8, 30x30x8 and 12x12x5
+    tiles) at the smallest Q the rule sends to it (``tile_min_q``), f32/i16/i8 with int
+    weights that clip mid-queue: segment-padded and unpadded (mixed-group)
+    queues and repeated coordinates, fresh and in place, each launch
+    counted as ``event_conv_interlaced_tile``; then one launch on each
+    side of the crossover, each counted on its own path."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.event_conv.kernel import (
+        event_conv_cuda_interlaced_batched, sm_count, tile_min_q)
+    from repro_torch.kernels.event_conv.ref import \
+        event_conv_ref_interlaced_batched
+
+    n_sm = sm_count(dev)
+
+    def check(tag, vm, coords, valid, kern, ep):
+        want = event_conv_ref_interlaced_batched(vm, coords, valid, kern,
+                                                 event_par=ep)
+        runtime.reset_launches()
+        got = event_conv_cuda_interlaced_batched(vm, coords, valid, kern,
+                                                 event_par=ep)
+        same(f"event_conv_interlaced tile path {tag}", got, want)
+        got = vm.clone()
+        event_conv_cuda_interlaced_batched(got, coords, valid, kern,
+                                           event_par=ep, out=got)
+        same(f"event_conv_interlaced tile path in place {tag}", got, want)
+        if (runtime.LAUNCHES["event_conv_interlaced_tile"],
+                runtime.LAUNCHES["event_conv_interlaced"]) != (2, 2):
+            fail(f"tile path {tag}: launches {runtime.LAUNCHES}")
+
+    for name, c_in, side, c, cap, ep, density in OFFLINE_CONVS:
+        hp = side + 2
+        for dtype in (torch.float32, torch.int16, torch.int8):
+            q_hi = tile_min_q(hp * hp * c * torch.empty(
+                (), dtype=dtype).element_size(), n_sm)
+            vm = rand_tile(g, (q_hi, hp, hp, c), dtype, dev)
+            kern = rand_kernel(g, (c_in, 3, 3, c), dtype, dev)
+            tag = f"{name} C_in={c_in} Q={q_hi} {hp}x{hp}x{c} {dtype} ep={ep}"
+            for pad in (True, False):
+                check(f"{tag}{'' if pad else ' mixed-groups'}", vm,
+                      *offline_queues(g, dev, c_in, side, cap, ep, density,
+                                      q_hi, pad=pad), kern, ep)
+    # repeated coordinates in homogeneous, mixed and late groups
+    hom = [[4, 4], [4, 4], [7, 4], [4, 7], [1, 1], [1, 1], [7, 7], [7, 7]]
+    mix = [[1, 1], [1, 1], [2, 2], [0, 0], [2, 2], [5, 5], [1, 1], [8, 8]]
+    late = [[3, 3], [3, 3], [3, 3], [6, 3], [0, 3], [3, 3], [9, 3], [3, 3]]
+    rows = torch.tensor([hom + mix + late, late + hom + mix], dtype=torch.int32)
+    q_hi = tile_min_q(12 * 12 * 8 * 4, n_sm)
+    coords = rows[:, None].expand(2, q_hi, 24, 2).contiguous().to(dev)
+    valid = (torch.rand((2, q_hi, 24), generator=g) < 0.8).to(dev)
+    check("repeated coords", rand_tile(g, (q_hi, 12, 12, 8), torch.float32,
+                                       dev),
+          coords, valid, rand_kernel(g, (2, 3, 3, 8), torch.float32, dev), 8)
+    # one launch on each side of the crossover
+    _, c_in, side, c, cap, ep, density = OFFLINE_CONVS[1]
+    q_hi = tile_min_q((side + 2) ** 2 * c * 4, n_sm)
+    for q, tile in ((q_hi - 1, 0), (q_hi, 1)):
+        coords, valid = offline_queues(g, dev, c_in, side, cap, ep, density, q)
+        vm = rand_tile(g, (q, side + 2, side + 2, c), torch.float32, dev)
+        kern = rand_kernel(g, (c_in, 3, 3, c), torch.float32, dev)
+        runtime.reset_launches()
+        event_conv_cuda_interlaced_batched(vm, coords, valid, kern,
+                                           event_par=ep, out=vm)
+        torch.cuda.synchronize()
+        if (runtime.LAUNCHES["event_conv_interlaced_tile"],
+                runtime.LAUNCHES["event_conv_interlaced"]) != (tile, 1):
+            fail(f"conv1 at Q={q}: launches {runtime.LAUNCHES}, want the "
+                 f"{'tile' if tile else 'patch'} path")
+    print(f"tile path: exact at the offline shapes from the rule's least Q; "
+          f"conv1 at Q={q_hi - 1} takes the patch gather, at Q={q_hi} the "
+          f"tile path")
+
+
+#: the batch sizes of the crossover table
+CROSSOVER_QS = (8, 16, 32, 64, 128, 256, 1024)
+
+
+def gather_crossover(dev, card) -> None:
+    """The tile path against the patch gather at the offline plan's three
+    conv shapes for Q in :data:`CROSSOVER_QS` (random maps at the layer's
+    offline event density, f32): device ms of one launch (CUDA graph
+    replay, patch, tile, tile, patch), which path the rule takes; then
+    conv1 at Q=1024 beside its bound, the plain version and ``F.conv2d``."""
+    import torch
+
+    from repro_torch.kernels.event_conv.kernel import sm_count, tile_path
+    from repro_torch.kernels.event_conv.ref import \
+        event_conv_ref_interlaced_batched
+
+    g = torch.Generator().manual_seed(28)
+    tag = f"[{card}]"
+    n_sm = sm_count(dev)
+    for name, c_in, side, c, cap, ep, density in OFFLINE_CONVS:
+        for q in CROSSOVER_QS:
+            coords, valid = offline_queues(g, dev, c_in, side, cap, ep,
+                                           density, q)
+            vm = rand_tile(g, (q, side + 2, side + 2, c), torch.float32, dev)
+            kern = rand_kernel(g, (c_in, 3, 3, c), torch.float32, dev)
+            if not torch.equal(pinned(vm, coords, valid, kern, ep, tile=True),
+                               pinned(vm, coords, valid, kern, ep,
+                                      tile=False)):
+                fail(f"crossover {name} Q={q}: the two paths differ")
+            ms = {}
+            for tile in (False, True, True, False):
+                t = graph_time_ms(lambda: pinned(vm, coords, valid, kern, ep,
+                                                 tile=tile, out=vm))
+                ms.setdefault(tile, []).append(t)
+            patch, tiled = (statistics.mean(ms[k]) for k in (False, True))
+            rule = tile_path(q, vm[0].numel() * 4, n_sm, ep, False)
+            print(f"crossover {name} Q={q} (C_in {c_in}, {side + 2}x"
+                  f"{side + 2}x{c}, depth {valid.shape[-1]}, event_par {ep}, "
+                  f"{int(valid.sum()) / q:.1f} events a tile): patch "
+                  f"{patch:.5f} ms, tile {tiled:.5f} ms (tile/patch "
+                  f"{tiled / patch:.3f}); rule takes the "
+                  f"{'tile' if rule else 'patch'} path {tag}")
+            if name == "conv1" and q == CROSSOVER_QS[-1]:
+                plain = cuda_time_ms(
+                    lambda: event_conv_ref_interlaced_batched(
+                        vm, coords, valid, kern, event_par=ep), 1)
+                bound, by = conv_bound(vm, [(coords, valid, kern)])
+                dense = torch.zeros((c_in, q, side * side), device=dev)
+                flat = (coords[..., 0].long() * side
+                        + coords[..., 1].long()).clamp(min=0)
+                dense.scatter_add_(2, flat, valid.float())
+                dense = dense.view(c_in, q, side, side).transpose(0, 1)
+                dense = dense.contiguous()
+                weight = kern.permute(3, 0, 1, 2).contiguous()
+                lib = graph_time_ms(lambda: torch.nn.functional.conv2d(
+                    dense, weight, padding=1))
+                print(f"timing event_conv_interlaced tile path (conv1, "
+                      f"Q={q}, depth {valid.shape[-1]}, event_par {ep}, "
+                      f"{c_in} c_in, f32): device {tiled:.5f} ms/launch, "
+                      f"patch gather {patch:.5f}, plain {plain:.4f}, bound "
+                      f"{bound:.6f} ({by}), conv2d {c_in} c_in {lib:.5f} "
+                      f"{tag}")
+
+
+def offline_launch_share(dev) -> None:
+    """The offline benchmark's plan (capacities 784/784/100, channel
+    blocks 8/8/5, event_par 8/8/4) on ``csnn_paper.FULL``: at B=1024 every
+    batched interlaced launch takes the tile path (exact counts) and the
+    forward equals the sequential unit's (``event_par=1``, the patch
+    gather) exactly; one sample takes the single-queue units and never the
+    tile path."""
+    import torch
+
+    from repro_torch.configs import csnn_paper
+    from repro_torch.core.csnn import encode_input, init_params
+    from repro_torch.core.plan import plan_network
+
+    cfg = csnn_paper.FULL
+    params = init_params(cfg, seed=0, device=dev)
+    knobs = dict(capacity=[784, 784, 100], channel_block=[8, 8, 5],
+                 batch_tile=8)
+    plan = plan_network(cfg, event_par=[8, 8, 4], **knobs)
+    seq = plan_network(cfg, event_par=1, **knobs)
+    imgs = torch.rand((1024, *cfg.input_hw, cfg.input_channels),
+                      generator=torch.Generator().manual_seed(28))
+    spikes = encode_input(imgs.to(dev), cfg)
+    launches = {}
+    tiled = counted("offline plan, B=1024", lambda: forward(
+        params, spikes, cfg, plan), launches,
+        exact_launches(plan, cfg.t_steps, batch=1024))
+    patch = counted("offline knobs at event_par=1, B=1024", lambda: forward(
+        params, spikes, cfg, seq), launches,
+        exact_launches(seq, cfg.t_steps, batch=1024))
+    hold_same("offline plan B=1024 (tile path) vs event_par=1 (patch gather)",
+              tiled, patch)
+    counted("offline plan, one sample", lambda: forward(
+        params, spikes[:1], cfg, plan), launches,
+        exact_launches(plan, cfg.t_steps, batch=1))
+    print(f"offline plan B=1024: the tile path took "
+          f"{launches['event_conv_interlaced_tile']} of "
+          f"{launches['event_conv_interlaced']} batched interlaced launches")
+
+
+def crossover_main() -> int:
+    """``--crossover``: build, hold the interlaced unit (both paths)
+    against its plain version (:func:`check_interlaced_gather`), print the
+    crossover table (:func:`gather_crossover`)."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    # full-float32 yardstick (F.conv2d), as in the whole run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    print(f"build: {runtime.build_all():.1f} s")
+    for line in runtime.BUILD_LOGS.get("event_conv", "").splitlines():
+        if "Used" in line or "spill" in line or "Compiling" in line:
+            print(f"ptxas event_conv: {line.strip()}")
+
+    def same(name, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"{name}: kernel != plain version ({where_differ(a, b)})")
+
+    t0 = time.perf_counter()
+    check_interlaced_gather(torch.Generator().manual_seed(11), dev, same)
+    print(f"interlaced unit exact on both paths in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gather_crossover(dev, card)
+    offline_launch_share(dev)
+    print(json.dumps({"ok": True}))
+    return 0
 
 
 # -------------------------------------------------------------- phase 3b
@@ -937,6 +1204,9 @@ def exact_launches(plan, steps, *, batch=B, emit=True, buckets=()) -> dict:
             for k, n in exact_launches(plan, 1, batch=b, emit=emit).items():
                 out[k] = out.get(k, 0) + n
         return out
+    import torch
+
+    from repro_torch.kernels.event_conv.kernel import sm_count, tile_path
     out = {}
     nxt = [lp.resolve_variant() for lp in plan.layers[1:]] + [None]
     for lp, consumer in zip(plan.layers, nxt):
@@ -947,7 +1217,14 @@ def exact_launches(plan, steps, *, batch=B, emit=True, buckets=()) -> dict:
             conv += "_single"
         thr = ("threshold_pool_emit" if emit and consumer == "fused-handoff"
                else "threshold_pool")
-        for k in (conv, thr):
+        keys = [conv, thr]
+        tile_bytes = math.prod(lp.vm_tile) * torch.empty(
+            (), dtype=lp.vm_dtype).element_size()
+        if variant == "interlaced-cuda" and tile_path(
+                batch, tile_bytes, sm_count(torch.device("cuda", 0)),
+                lp.event_par, batch == 1):
+            keys.append("event_conv_interlaced_tile")
+        for k in keys:
             out[k] = out.get(k, 0) + n
     return out
 
@@ -3660,6 +3937,8 @@ def main() -> int:
         return lm_train_main()
     if sys.argv[1:2] == ["--mesh"]:
         return mesh_main()
+    if sys.argv[1:2] == ["--crossover"]:
+        return crossover_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -3758,6 +4037,8 @@ def main() -> int:
                              card)
     timing_engine(dev, csnn_paper.FULL, params, serve_plan, stream, splans,
                   card)
+    gather_crossover(dev, card)
+    offline_launch_share(dev)
     for line in lm_timing_lines:
         print(line)
     for k in kernels:  # a record at another shape counts its kernel's runs

@@ -5,7 +5,8 @@ Every kernel in ``kernels/`` ships with a plain PyTorch version
 (``ref.py``) and an exactness claim.  This pass re-verifies the contract
 between the two per sweep geometry and dtype (JAX's ``_sweep``: float32,
 int16 and int8, k in {1, 3, 5}), on the audit device: ``cuda`` launches
-the seven CUDA kernels through their wrappers, ``cpu`` runs the wrappers'
+the seven CUDA kernels (and the tile path of the batched interlaced unit)
+through their wrappers, ``cpu`` runs the wrappers'
 plain versions.  The references always run on the CPU.  JAX's four rule
 ids:
 
@@ -14,14 +15,14 @@ ids:
 * ``kernel-value-parity`` — on JAX's adversarial inputs
   (``default_rng(7)``, drawn in JAX's order): the raw queue with corner
   events, duplicates and ``-1`` sentinels through both sequential gathers;
-  the deduplicated AEQ through both interlaced gathers at the case's
-  ``event_par``; its bank masks through the banked conv; the threshold
+  the deduplicated AEQ through both interlaced gathers and the tile path
+  at the case's ``event_par``; its bank masks through the banked conv; the threshold
   unit at pool 3 and without, base and emit (capacity H*W // 2), the
   emitted masks also against ``aeq.build_fused_handoff``.  Compared by
   value (``torch.equal``): a CUDA gather skips invalid slots where
   Pallas adds +0.0, so a -0.0 cell stays -0.0.  After a ``cuda`` pass
-  every one of the seven kernels must have counted a launch
-  (``runtime.LAUNCHES``), so none is quietly replaced by its plain
+  every one of the seven kernels and the tile path must have counted a
+  launch (``runtime.LAUNCHES``), so none is quietly replaced by its plain
   version.
 * ``kernel-checkify`` — torch has no ``checkify``: the plain datapaths
   (``event_conv_ref``, ``threshold_pool_ref``) run on ``default_rng(11)``
@@ -31,9 +32,9 @@ ids:
   equals the plain version; float outputs are NaN-free.
 * ``kernel-sat-overflow`` — int8/int16 saturation at maximum fan-in
   (k*k events around one cell, maximal taps, the tile one tap below the
-  rail): every conv unit (the four gathers and the banked conv) clamps
-  at the bound instead of wrapping, and equals the per-event plain
-  version.  ``apply_fn`` replaces the units (the self-test's wrapping
+  rail): every conv unit (the four gathers, the tile path and the banked
+  conv) clamps at the bound instead of wrapping, and equals the per-event
+  plain version.  ``apply_fn`` replaces the units (the self-test's wrapping
   adder must be flagged).
 """
 from __future__ import annotations
@@ -51,7 +52,8 @@ from .report import Report
 _SAT = {8: (-128, 127), 16: (-32768, 32767)}
 #: tiles of the batched entries in the shape contract (JAX's q = 3)
 QUEUES = 3
-#: the seven CUDA kernels, by their launch counters' names
+#: the seven CUDA kernels and the tile path of the batched interlaced
+#: unit, by their launch counters' names
 KERNELS = tuple(LAUNCHES)
 
 
@@ -181,8 +183,9 @@ class RedZones:
 def check_shape_contracts(report: Optional[Report] = None, *,
                           device="cpu") -> Report:
     """Every wrapper on ``device`` against its plain version on the CPU:
-    output shapes and dtypes, all seven entries, per sweep case (the
-    threshold unit at pool 3 and without, base and emit)."""
+    output shapes and dtypes, all seven entries and the tile path, per
+    sweep case (the threshold unit at pool 3 and without, base and
+    emit)."""
     from repro_torch.core.aeq import build_aeq_batched, segment_pad
     from repro_torch.core.event_conv import tap_matrix
     from repro_torch.kernels.event_conv import kernel as ek
@@ -233,6 +236,9 @@ def check_shape_contracts(report: Optional[Report] = None, *,
             ("event_conv_interlaced_single", ek.event_conv_cuda_interlaced,
              er.event_conv_ref_interlaced,
              (vm[0], qp.coords[0], qp.valid[0], kern), dict(event_par=par)),
+            ("event_conv_interlaced_tile", ek.event_conv_cuda_interlaced_tile,
+             er.event_conv_ref_interlaced_batched,
+             (vm, qp.coords, qp.valid, kern), dict(event_par=par)),
         ]
         for name, kfn, rfn, args, kw in entries:
             out = zones.empty(args[0].shape, dtype)
@@ -347,6 +353,15 @@ def check_value_parity(report: Optional[Report] = None, *,
         hold(_same(got, torch.stack(bases)),
              f"kernel:event_conv_interlaced[{case}]",
              f"batched interlaced gather (event_par={par}) diverges from the "
+             f"sequential apply_events oracle")
+        tiles = put(vmb)
+        got = ek.event_conv_cuda_interlaced_tile(
+            tiles, put(torch.stack([p.coords for p in padded])),
+            put(torch.stack([p.valid for p in padded])), put(kern),
+            event_par=par, out=tiles)
+        hold(_same(got, torch.stack(bases)),
+             f"kernel:event_conv_interlaced_tile[{case}]",
+             f"interlaced tile path (event_par={par}) diverges from the "
              f"sequential apply_events oracle")
         tiles = put(vmb)
         got = ek.event_conv_cuda_banked(
@@ -465,11 +480,11 @@ def check_checkify(report: Optional[Report] = None) -> Report:
 
 
 def conv_units(zones: RedZones) -> dict[str, Callable]:
-    """The five conv units as ``apply(vm_padded, coords, valid, kernel) ->
+    """The six conv units as ``apply(vm_padded, coords, valid, kernel) ->
     vm_padded`` on CPU tensors of one (Hp, Wp, C) tile and one raw queue,
     each launched through its wrapper on zoned copies (``zones``), in
-    place: the sequential gathers on the queue, the interlaced ones
-    (``event_par`` 2) on the segment-padded AEQ of the queue's events, the
+    place: the sequential gathers on the queue, the interlaced ones (the
+    batched unit on both its paths; ``event_par`` 2) on the segment-padded AEQ of the queue's events, the
     banked conv on their carrier."""
     from repro_torch.core.aeq import build_aeq, segment_pad
     from repro_torch.core.event_conv import tap_matrix
@@ -517,6 +532,13 @@ def conv_units(zones: RedZones) -> dict[str, Callable]:
             tiles, put(q.coords[None]), put(q.valid[None]), put(kern),
             event_par=2, out=tiles)[0].cpu()
 
+    def interlaced_tile(vm_p, co, va, kern):
+        q = aeq(vm_p, co, va, kern)
+        tiles = put(vm_p[None])
+        return ek.event_conv_cuda_interlaced_tile(
+            tiles, put(q.coords[None]), put(q.valid[None]), put(kern),
+            event_par=2, out=tiles)[0].cpu()
+
     def banked(vm_p, co, va, kern):
         geom, fmap = events_map(vm_p, co, va, kern)
         tiles = put(vm_p[None])
@@ -528,6 +550,7 @@ def conv_units(zones: RedZones) -> dict[str, Callable]:
     return {"event_conv_seq": seq_batched, "event_conv_seq_single": seq,
             "event_conv_interlaced": interlaced_batched,
             "event_conv_interlaced_single": interlaced,
+            "event_conv_interlaced_tile": interlaced_tile,
             "event_conv_banked": banked}
 
 
@@ -604,7 +627,7 @@ def check_saturation(apply_fn: Optional[Callable] = None, *,
 def run_kernel_audit(report: Optional[Report] = None, *,
                      device="cuda") -> Report:
     """Every check over the sweep, the wrappers on ``device``.  On a CUDA
-    device each of the seven kernels must count a launch
+    device each of the seven kernels and the tile path must count a launch
     (``runtime.LAUNCHES``), or the pass is flagged."""
     rep = report if report is not None else Report()
     dev = torch.device(device)

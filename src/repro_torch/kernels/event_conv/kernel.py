@@ -11,6 +11,9 @@ The four queue wrappers take every input channel's queues of one
 ``C_in`` axis and the kernel is ``(C_in, kh, kw, C)``; the forms without
 that axis are the ``C_in = 1`` case.  All four launch one gather kernel;
 the interlaced ones add its keep predicate (``ref.interlaced_keep``).
+The batched interlaced one takes the tile path instead (one CTA per
+membrane tile in shared memory, :func:`tile_path`) where Q is large
+enough to fill the card with whole tiles.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``ref.py``) for CPU tensors.  It checks device, dtype, shape and
@@ -23,6 +26,7 @@ returned.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -41,6 +45,17 @@ SMEM_PER_BLOCK = 232448
 #: bounds of the gather kernel's packed slot
 _MAX_C_IN = 1024
 _MAX_SIDE = 2048
+#: the tile path of the batched interlaced unit (``launch_tile`` in
+#: ``csrc/event_conv.cu``): the largest tile, in bytes, whose CTA holds it
+#: beside its list of kept slots in 48 KB of shared memory, and the largest
+#: ``event_par`` one thread reads as a group
+TILE_MAX_BYTES = 36720
+TILE_MAX_PAR = 16
+#: the crossover of the two paths at the paper's conv shapes (PERF.md, the
+#: crossover table): a tile of at least this many bytes, which the patch
+#: gather spreads over many patches, takes the tile path from half a tile
+#: per SM; a smaller one from one tile per SM
+TILE_LARGE_BYTES = 16384
 #: the banked conv's largest pixel patch rows (``banked_patch`` in
 #: ``csrc/event_conv_banked.cu`` starts at 8 x 8 and only halves)
 _BANKED_PATCH_ROWS = 8
@@ -60,6 +75,8 @@ def _lib():
         lib.event_conv_seq_single.restype = _I
         lib.event_conv_interlaced_single.argtypes = [_P] * 5 + [_I] * 9 + [_P]
         lib.event_conv_interlaced_single.restype = _I
+        lib.event_conv_interlaced_tile.argtypes = [_P] * 5 + [_I] * 10 + [_P]
+        lib.event_conv_interlaced_tile.restype = _I
         lib._typed = True
     return lib
 
@@ -149,6 +166,31 @@ def check_gather_limits(vm_padded, coords, valid, kernel) -> None:
             f"operand")
 
 
+def tile_min_q(tile_bytes: int, n_sm: int) -> int:
+    """The fewest tiles from which the tile path beats the patch gather
+    (:data:`TILE_LARGE_BYTES`): one CTA a tile leaves SMs idle below it,
+    where the patch gather spreads a tile over many CTAs."""
+    return -(-n_sm // 2) if tile_bytes >= TILE_LARGE_BYTES else n_sm
+
+
+def tile_path(q: int, tile_bytes: int, n_sm: int, event_par: int,
+              single: bool) -> bool:
+    """Whether a queue conv launch takes the tile path: the batched
+    interlaced unit (not ``single``, ``2 <= event_par <= TILE_MAX_PAR``)
+    on tiles of at most :data:`TILE_MAX_BYTES`, from
+    :func:`tile_min_q` tiles on a card of ``n_sm`` SMs.  The sequential
+    unit has no conflict-free groups and keeps the patch gather."""
+    return (not single and 2 <= event_par <= TILE_MAX_PAR
+            and tile_bytes <= TILE_MAX_BYTES
+            and q >= tile_min_q(tile_bytes, n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _with_c_in(coords, valid, kernel, *, single: bool):
     """A queue wrapper's operands with the leading input-channel axis;
     the forms without it are the ``C_in = 1`` case.  The shapes are
@@ -161,11 +203,13 @@ def _with_c_in(coords, valid, kernel, *, single: bool):
 
 
 def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
-            single: bool):
+            single: bool, tile: Optional[bool] = None):
     """Launch a queue conv unit on (C_in, ...) operands, every input
     channel in one launch: the batched entry on (Q, Hp, Wp, C) tiles, or
     (``single``) the single-queue entry on one (Hp, Wp, C) tile;
-    ``event_par > 1`` selects the interlaced keep predicate."""
+    ``event_par > 1`` selects the interlaced keep predicate, and
+    :func:`tile_path` the tile path of the batched one (``tile`` pins the
+    path, for the card's tests and the crossover timing)."""
     for name, t in (("vm", vm_padded), ("coords", coords), ("valid", valid),
                     ("kernel", kernel), ("out", out)):
         if not t.is_contiguous():
@@ -177,8 +221,13 @@ def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
     check_gather_limits(vm_padded, coords, valid, kernel)
     if coords.data_ptr() % 8:
         raise ValueError("coords must be 8-byte aligned (int32 pairs)")
+    if tile is None:
+        tile = tile_path(1 if single else vm_padded.shape[0],
+                         hp * wp * c * vm_padded.element_size(),
+                         sm_count(vm_padded.device), event_par, single)
     if event_par > 1:
         entry = "event_conv_interlaced_single" if single else \
+            "event_conv_interlaced_tile" if tile else \
             "event_conv_interlaced_batched"
         counter = "event_conv_interlaced_single" if single else \
             "event_conv_interlaced"
@@ -193,6 +242,8 @@ def _launch(vm_padded, coords, valid, kernel, out, event_par, *,
     lib = _lib()
     status = getattr(lib, entry)(*args)
     runtime.LAUNCHES[counter] += 1
+    if entry == "event_conv_interlaced_tile":
+        runtime.LAUNCHES[entry] += 1
     runtime.check(lib, status, entry)
     return out
 
@@ -244,8 +295,29 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
     a mixed group runs in queue order, and a coordinate repeated within a
     column-homogeneous group lands once, as in the Pallas kernel.
     Bit-exact vs the sequential kernel on any queue without repeated
-    coordinates.
+    coordinates.  The card takes the path :func:`tile_path` gives.
     """
+    return _interlaced_batched(vm_padded, coords, valid, kernel, event_par,
+                               out, tile=None)
+
+
+def event_conv_cuda_interlaced_tile(vm_padded: torch.Tensor,
+                                    coords: torch.Tensor,
+                                    valid: torch.Tensor,
+                                    kernel: torch.Tensor, *, event_par: int,
+                                    out: Optional[torch.Tensor] = None
+                                    ) -> torch.Tensor:
+    """:func:`event_conv_cuda_interlaced_batched` on its tile path whatever
+    Q: for the kernel audit, which launches every kernel at its own small
+    shapes.  Same contract; the card raises where the tile path refuses
+    the operands (``event_par`` over :data:`TILE_MAX_PAR`, a tile over
+    :data:`TILE_MAX_BYTES`)."""
+    return _interlaced_batched(vm_padded, coords, valid, kernel, event_par,
+                               out, tile=True)
+
+
+def _interlaced_batched(vm_padded, coords, valid, kernel, event_par, out, *,
+                        tile: Optional[bool]):
     _require_par(event_par, "event_conv_cuda_batched")
     coords, valid, kernel = _with_c_in(coords, valid, kernel, single=False)
     _check(vm_padded, coords, valid, kernel, out, event_par)
@@ -256,7 +328,7 @@ def event_conv_cuda_interlaced_batched(vm_padded: torch.Tensor,
     if out is None:
         out = torch.empty_like(vm_padded)
     return _launch(vm_padded, coords, valid, kernel, out, event_par,
-                   single=False)
+                   single=False, tile=tile)
 
 
 def event_conv_cuda(vm_padded: torch.Tensor, coords: torch.Tensor,

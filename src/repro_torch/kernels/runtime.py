@@ -37,11 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("event_conv", "event_conv_banked", "threshold_pool")
 
-#: launches per kernel since the last :func:`reset_launches`
+#: launches per kernel since the last :func:`reset_launches`;
+#: ``event_conv_interlaced_tile`` counts the batched interlaced launches
+#: that took the tile path (each also counts as ``event_conv_interlaced``)
 LAUNCHES = {"event_conv_seq": 0, "event_conv_interlaced": 0,
             "event_conv_banked": 0, "threshold_pool": 0,
             "threshold_pool_emit": 0, "event_conv_seq_single": 0,
-            "event_conv_interlaced_single": 0}
+            "event_conv_interlaced_single": 0,
+            "event_conv_interlaced_tile": 0}
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}

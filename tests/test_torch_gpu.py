@@ -13,7 +13,8 @@ from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
 from repro_torch.kernels.event_conv.kernel import (
     event_conv_cuda, event_conv_cuda_banked, event_conv_cuda_batched,
-    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
+    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched, sm_count,
+    tile_min_q)
 from repro_torch.kernels.event_conv.ref import (
     event_conv_ref, event_conv_ref_banked, event_conv_ref_batched,
     event_conv_ref_interlaced, event_conv_ref_interlaced_batched)
@@ -72,6 +73,116 @@ def test_cuda_kernels_equal_plain_versions(cuda, dtype):
                                      halo=(1, 1))
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(sa, sb) and torch.equal(pa, pb)
+
+
+#: the offline benchmark plan's conv layers: (C_in, map side, tile
+#: channels, capacity, event_par, input events per slot)
+OFFLINE_CONVS = {"conv0": (1, 28, 8, 784, 8, 0.28),
+                 "conv1": (32, 28, 8, 784, 8, 0.16),
+                 "conv2": (32, 10, 5, 100, 4, 0.27)}
+
+
+def _offline_case(g, cuda, layer, q, dtype, *, pad=True):
+    """vm (Q, side+2, side+2, C), coords (C_in, Q, E, 2), valid (C_in, Q,
+    E) and kernel (C_in, 3, 3, C) of one offline conv layer on random
+    maps; int weights large enough to clip mid-queue."""
+    c_in, side, c, cap, ep, density = OFFLINE_CONVS[layer]
+    fm = torch.rand((c_in * q, side, side), generator=g) < density
+    qs = taeq.build_aeq_batched(fm.to(cuda), cap)
+    if pad:
+        qs = taeq.segment_pad(qs, ep)
+    scale = {torch.float32: 1.0, torch.int16: 9000.0, torch.int8: 40.0}[dtype]
+    vm = (torch.randn((q, side + 2, side + 2, c), generator=g)
+          * scale).to(dtype).to(cuda)
+    kern = (torch.randn((c_in, 3, 3, c), generator=g)
+            * scale).to(dtype).to(cuda)
+    return (vm, qs.coords.reshape(c_in, q, -1, 2).contiguous(),
+            qs.valid.reshape(c_in, q, -1).contiguous(), kern, ep)
+
+
+def _tile_launches(fn):
+    """(tile path, all batched interlaced) launches of ``fn``."""
+    runtime.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return (runtime.LAUNCHES["event_conv_interlaced_tile"],
+            runtime.LAUNCHES["event_conv_interlaced"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16, torch.int8])
+def test_interlaced_tile_path_equals_plain_version(cuda, dtype):
+    """The batched interlaced unit at the offline plan's shapes (conv0,
+    conv1, conv2: capacities 784/784/100, event_par 8/8/4, 30x30x8,
+    30x30x8 and 12x12x5 tiles) at the smallest Q the rule sends to the
+    tile path (``tile_min_q``): segment-padded and unpadded (mixed-group) queues and
+    repeated coordinates, fresh and in place, each launch on the tile
+    path and equal to the plain version."""
+    g = torch.Generator().manual_seed(28)
+    size = torch.empty((), dtype=dtype).element_size()
+    for layer, (_, side, c, *_) in OFFLINE_CONVS.items():
+        q = tile_min_q((side + 2) ** 2 * c * size, sm_count(cuda))
+        for pad in (True, False):
+            vm, coords, valid, kern, ep = _offline_case(g, cuda, layer, q,
+                                                        dtype, pad=pad)
+            want = event_conv_ref_interlaced_batched(vm, coords, valid, kern,
+                                                     event_par=ep)
+            fresh, inplace = torch.empty_like(vm), vm.clone()
+            assert _tile_launches(lambda: (
+                event_conv_cuda_interlaced_batched(
+                    vm, coords, valid, kern, event_par=ep, out=fresh),
+                event_conv_cuda_interlaced_batched(
+                    inplace, coords, valid, kern, event_par=ep,
+                    out=inplace))) == (2, 2)
+            assert torch.equal(fresh, want), (layer, pad)
+            assert torch.equal(inplace, want), (layer, pad)
+    # repeated coordinates: in homogeneous groups (dropped), in mixed
+    # groups (applied every time), behind an invalid first copy
+    hom = [[4, 4], [4, 4], [7, 4], [4, 7], [1, 1], [1, 1], [7, 7], [7, 7]]
+    mix = [[1, 1], [1, 1], [2, 2], [0, 0], [2, 2], [5, 5], [1, 1], [8, 8]]
+    late = [[3, 3], [3, 3], [3, 3], [6, 3], [0, 3], [3, 3], [9, 3], [3, 3]]
+    rows = torch.tensor([hom + mix + late, late + hom + mix],
+                        dtype=torch.int32)
+    q = tile_min_q(12 * 12 * 8 * size, sm_count(cuda))
+    coords = rows[:, None].expand(2, q, 24, 2).contiguous().to(cuda)
+    valid = (torch.rand((2, q, 24), generator=g) < 0.8).to(cuda)
+    vm = (torch.randn((q, 12, 12, 8), generator=g) * 50).to(dtype).to(cuda)
+    kern = (torch.randn((2, 3, 3, 8), generator=g) * 40).to(dtype).to(cuda)
+    for ep in (4, 8):
+        want = event_conv_ref_interlaced_batched(vm, coords, valid, kern,
+                                                 event_par=ep)
+        got = vm.clone()
+        assert _tile_launches(lambda: event_conv_cuda_interlaced_batched(
+            got, coords, valid, kern, event_par=ep, out=got)) == (1, 1)
+        assert torch.equal(got, want), ep
+
+
+@pytest.mark.gpu
+def test_interlaced_path_follows_the_rule(cuda):
+    """Just below the crossover the batched interlaced unit takes the
+    patch gather, at it the tile path; the sequential unit and the
+    single-queue units never take the tile path."""
+    g = torch.Generator().manual_seed(5)
+    q_hi = tile_min_q(30 * 30 * 8 * 4, sm_count(cuda))
+    for q, tile in ((q_hi - 1, 0), (q_hi, 1)):
+        vm, coords, valid, kern, ep = _offline_case(g, cuda, "conv1", q,
+                                                    torch.float32)
+        want = event_conv_ref_interlaced_batched(vm, coords, valid, kern,
+                                                 event_par=ep)
+        assert _tile_launches(lambda: event_conv_cuda_interlaced_batched(
+            vm, coords, valid, kern, event_par=ep, out=vm)) == (tile, 1)
+        assert torch.equal(vm, want), q
+    runtime.reset_launches()
+    vm, coords, valid, kern, ep = _offline_case(g, cuda, "conv1", q_hi,
+                                                torch.float32)
+    event_conv_cuda_batched(vm, coords, valid, kern, out=vm)
+    event_conv_cuda_interlaced(vm[0], coords[:, 0].contiguous(),
+                               valid[:, 0].contiguous(), kern, event_par=ep,
+                               out=vm[0])
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["event_conv_interlaced_tile"] == 0
+    assert (runtime.LAUNCHES["event_conv_seq"],
+            runtime.LAUNCHES["event_conv_interlaced_single"]) == (1, 1)
 
 
 @pytest.mark.gpu
@@ -159,7 +270,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "threshold_pool": 0,
                                 "threshold_pool_emit": 0,
                                 "event_conv_seq_single": 0,
-                                "event_conv_interlaced_single": 0}
+                                "event_conv_interlaced_single": 0,
+                                "event_conv_interlaced_tile": 0}
     # the banked conv and the emit kernel count only their own launches
     ho = taeq.build_fused_handoff(torch.ones((2, 1, 8, 8, 3), dtype=torch.bool,
                                              device=cuda), 64)
@@ -179,7 +291,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "threshold_pool": 0,
                                 "threshold_pool_emit": 1,
                                 "event_conv_seq_single": 0,
-                                "event_conv_interlaced_single": 0}
+                                "event_conv_interlaced_single": 0,
+                                "event_conv_interlaced_tile": 0}
     # the single-queue units count only their own launches
     qp = taeq.segment_pad(q, 4)
     event_conv_ref(vm[0], q3.coords[:, 0], q3.valid[:, 0], kern3)
@@ -460,7 +573,7 @@ def test_measured_tune_on_card_equals_analytic_plan(cuda, tmp_path):
 @pytest.mark.gpu
 def test_kernel_audit_on_card_launches_every_kernel(cuda):
     """``python -m repro_torch.analysis --only kernels`` in process: clean,
-    and each of the seven kernels counted a launch."""
+    and each of the seven kernels and the tile path counted a launch."""
     from repro_torch.analysis.kernel_audit import KERNELS, run_kernel_audit
     runtime.reset_launches()
     rep = run_kernel_audit(device=cuda)

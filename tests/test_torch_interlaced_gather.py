@@ -31,7 +31,9 @@ from repro_torch.core import scheduler as ts
 from repro_torch.core.plan import plan_network as tplan
 from repro_torch.kernels import runtime
 from repro_torch.kernels.event_conv.kernel import (
-    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
+    TILE_LARGE_BYTES, TILE_MAX_BYTES, TILE_MAX_PAR,
+    event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched,
+    event_conv_cuda_interlaced_tile, tile_path)
 from repro_torch.kernels.event_conv.ref import (
     event_conv_ref_batched, event_conv_ref_interlaced,
     event_conv_ref_interlaced_batched)
@@ -227,6 +229,60 @@ def test_one_input_channel_forms():
                 event_conv_ref_interlaced(tvm[0], tc_[0, 0], tv[0, 0], tk[0],
                                           event_par=8)):
         np.testing.assert_array_equal(want[0], got.numpy())
+
+
+CONV1_TILE = 30 * 30 * 8 * 4  # the offline plan's conv1 tile, float32
+CONV2_TILE = 12 * 12 * 5 * 4
+# (Q, tile bytes, SMs, event_par, single) -> whether the tile path runs
+PATH_RULE = [
+    ((66, CONV1_TILE, 132, 8, False), True),      # half a tile per SM
+    ((65, CONV1_TILE, 132, 8, False), False),
+    ((1024, CONV1_TILE, 132, 8, False), True),
+    ((8, CONV1_TILE, 132, 8, False), False),
+    ((57, CONV1_TILE, 114, 8, False), True),
+    ((56, CONV1_TILE, 114, 8, False), False),
+    ((66, TILE_LARGE_BYTES, 132, 8, False), True),
+    ((66, TILE_LARGE_BYTES - 1, 132, 8, False), False),
+    ((132, CONV2_TILE, 132, 4, False), True),     # a tile per SM
+    ((131, CONV2_TILE, 132, 4, False), False),
+    ((1024, CONV2_TILE, 132, 4, False), True),
+    ((1024, TILE_MAX_BYTES, 132, 8, False), True),
+    ((1024, TILE_MAX_BYTES + 1, 132, 8, False), False),    # oversized tile
+    ((1024, 30 * 30 * 32 * 4, 132, 8, False), False),
+    ((1024, CONV1_TILE, 132, 1, False), False),            # sequential
+    ((1024, CONV1_TILE, 132, 2, False), True),
+    ((1024, CONV1_TILE, 132, TILE_MAX_PAR, False), True),
+    ((1024, CONV1_TILE, 132, TILE_MAX_PAR + 1, False), False),
+    ((1024, CONV1_TILE, 132, 8, True), False),             # single entry
+    ((1, CONV1_TILE, 132, 1, True), False),
+]
+
+
+@pytest.mark.parametrize("args,tile", PATH_RULE,
+                         ids=[f"q{a[0]}-b{a[1]}-sm{a[2]}-p{a[3]}-s{int(a[4])}"
+                              for a, _ in PATH_RULE])
+def test_tile_path_rule(args, tile):
+    """The batched interlaced unit's path is a function of Q, the tile's
+    bytes, the card's SM count, event_par and the entry alone: the tile
+    path from half a tile per SM on large tiles and one per SM on small
+    ones, on tiles that fit its shared memory and groups one thread
+    reads; never for the sequential or the single-queue entries."""
+    assert tile_path(*args) is tile
+
+
+def test_tile_entry_on_cpu_is_the_plain_version():
+    """The tile path's entry runs the plain version on CPU tensors, equal
+    to the Pallas unit per input channel, and launches nothing."""
+    rng = np.random.default_rng(51)
+    coords, valid = _queues(rng, 3, 8)
+    vm = _values(rng, (Q, SIDE + 2, SIDE + 2, C), np.float32)
+    kern = _values(rng, (C_IN, 3, 3, C), np.float32, kernel=True)
+    tvm, tc_, tv, tk = _t(vm, coords, valid, kern)
+    runtime.reset_launches()
+    got = event_conv_cuda_interlaced_tile(tvm, tc_, tv, tk, event_par=8)
+    np.testing.assert_array_equal(_jax_batched(vm, coords, valid, kern, 8),
+                                  got.numpy())
+    assert all(v == 0 for v in runtime.LAUNCHES.values())
 
 
 def test_input_channel_mismatch_raises():

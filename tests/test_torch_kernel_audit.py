@@ -65,9 +65,9 @@ def test_cpu_audit_is_clean():
     assert rep.ok, rep.summary()
     for rule in RULES:
         assert rep.checked[rule] >= 1, rule
-    # a wrapper's shapes per case: four gathers, the banked conv, the
-    # threshold unit base and emit at two pools
-    assert rep.checked["kernel-shape-contract"] == 9 * len(CASES)
+    # a wrapper's shapes per case: four gathers, the tile path, the banked
+    # conv, the threshold unit base and emit at two pools
+    assert rep.checked["kernel-shape-contract"] == 10 * len(CASES)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
@@ -130,8 +130,8 @@ def test_saturation_rail_reached_and_clamped_by_every_unit(k):
     geom = TGeom(k, k)
     rep = tka.check_saturation(geometry=geom, device="cpu")
     assert rep.ok, rep.summary()
-    # five units, two widths, the clamp and the widening headroom each
-    assert rep.checked["kernel-sat-overflow"] == 5 * 2 * 2
+    # six units, two widths, the clamp and the widening headroom each
+    assert rep.checked["kernel-sat-overflow"] == 6 * 2 * 2
     units = tka.conv_units(tka.RedZones("cpu", Report()))
     h = 2 * k + 1
     events = torch.tensor([(h // 2 + a, h // 2 + b)
