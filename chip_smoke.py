@@ -5,6 +5,7 @@
     python3 chip_smoke.py --compare-threshold OTHER/threshold_pool.cu ...
     python3 chip_smoke.py --stress-emit SECONDS
     python3 chip_smoke.py --crossover
+    python3 chip_smoke.py --vgg
 
 The second form only builds the given base-mode threshold sources beside
 this checkout's, holds each against the plain version and times them in
@@ -17,7 +18,11 @@ the plain version: a search for a rare cross-CTA race in the kernel's
 cluster exchange, which one pass of phase 3 cannot see.  The fourth
 builds, holds the interlaced conv unit on both its paths against the plain
 version (phase 3's ``check_interlaced_gather``) and prints the crossover
-table and the offline plan's launch counts of phase 7.
+table and the offline plan's launch counts of phase 7.  The fifth runs
+phase 7's VGG-16 check alone, then trains and converts a VGG-16 with the
+port's own path and reads its activity beside the benchmark's drawn
+weights (``vgg_converted``), and writes the readings to
+``results/vgg_smoke.json``.
 
 Phases (any failure exits non-zero before the result line):
 
@@ -218,7 +223,15 @@ Phases (any failure exits non-zero before the result line):
    path at conv1, Q=1024, beside its bound, plain version and
    ``F.conv2d``), and the offline benchmark's plan at B=1024 with exact
    launch counts (every batched interlaced launch on the tile path, the
-   forward equal to ``event_par=1``'s; one sample never on it).
+   forward equal to ``event_par=1``'s; one sample never on it); last
+   VGG-16 (``csnn_vgg16.FULL``) at B=256 under its pinned plan on the
+   offline VGG cell's weights and images (``vgg_phase``): exact launch
+   counts, logits bit for bit the benchmark's float64 reference, each
+   layer's input density at least 1 %, per layer the host ms of its
+   ``.queues`` and ``.launches`` spans, its device ms and its conv path
+   (every layer on the tile path), the memory peak, ms a forward,
+   samples/s and busy share, and the same forward at channel block 8 on
+   the two 32x32 layers (the patch gather) beside it.
 
 The line before last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -1047,6 +1060,307 @@ def crossover_main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     gather_crossover(dev, card)
     offline_launch_share(dev)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+# ------------------------------------------------------------ VGG phase
+#: the offline VGG cell's batch (``bench/traffic/offline-cifar-b256.json``)
+VGG_BATCH = 256
+
+
+def bench_config():
+    """The benchmark's file finder (``bench/harness/config.py``), with
+    ``bench/`` on the path; nothing of it imports JAX."""
+    bench = str(ROOT / "bench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from harness import config
+    return config
+
+
+def layer_trace(events, n_layers: int) -> list:
+    """Per conv layer of one profiled forward: host ms of its
+    ``csnn.conv<i>.queues`` and ``csnn.conv<i>.launches`` spans, the union
+    of device us launched under ``csnn.conv<i>`` (a launch belongs to the
+    span its runtime call starts in: the call and the kernel share a
+    correlation id) and the conv unit's path: "tile" or "patch" by the
+    gather kernels' names."""
+    from yardstick import stats
+
+    def device(e):
+        return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+    ranges = [(e.name, float(e.time_range.start), float(e.time_range.end))
+              for e in events if e.name.startswith("csnn.") and not device(e)]
+    calls = {e.id: float(e.time_range.start) for e in events
+             if not device(e) and e.name.startswith(("cuda", "cu"))}
+    kernels = [(e.id, e.name, float(e.time_range.start),
+                float(e.time_range.end)) for e in events if device(e)]
+    out = []
+    for i in range(n_layers):
+        name = f"csnn.conv{i}"
+        outer = [(s, e) for n, s, e in ranges if n == name]
+        host = {k: sum(e - s for n, s, e in ranges if n == f"{name}.{k}")
+                / 1e3 for k in ("queues", "launches")}
+        mine = [(n, s, e) for corr, n, s, e in kernels
+                if corr in calls and any(a <= calls[corr] <= b
+                                         for a, b in outer)]
+        gathers = {n for n, _, _ in mine if "event_conv_gather_kernel" in n}
+        path = ("tile" if all("_tile" in n for n in gathers) else
+                "patch" if not any("_tile" in n for n in gathers) else
+                "both") if gathers else "none"
+        out.append({"layer": i, "queues_ms": host["queues"],
+                    "launches_ms": host["launches"],
+                    "device_us": stats.covered([(s, e) for _, s, e in mine]),
+                    "path": path})
+    return out
+
+
+def vgg_forward_times(dev, params, spikes, cfg, plan, reps: int = 5):
+    """(ms a forward, host ms to enqueue one) over ``reps`` forwards
+    back to back after one warm forward."""
+    import torch
+
+    from repro_torch.core.csnn import snn_apply_batched
+    snn_apply_batched(params, spikes, cfg, plan, collect_stats=False)
+    torch.cuda.synchronize(dev)
+    enqueue = []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        snn_apply_batched(params, spikes, cfg, plan, collect_stats=False)
+        enqueue.append(time.perf_counter() - t1)
+    torch.cuda.synchronize(dev)
+    return ((time.perf_counter() - t0) / reps * 1e3,
+            statistics.median(enqueue) * 1e3)
+
+
+def vgg_phase(dev, card) -> dict:
+    """VGG-16 (``configs.csnn_vgg16.FULL``) at B=256 under its pinned plan,
+    on the offline cell's weights (``bench/builders/csnn_gain.py``, seed
+    2**31 + 29) and its first 256 pool images: exact launch counts
+    (``exact_launches``: 390 conv + 390 threshold, every conv on the tile
+    path), the logits bit for bit the benchmark's float64 reference,
+    distinct from row to row, each layer's input density; per layer the
+    host ms of ``csnn.conv<i>.queues`` and ``.launches``, the device us
+    launched under the layer and the conv unit's path; the memory peak,
+    ms a forward, host enqueue ms, samples/s and busy share; then the
+    same at channel block 8 on the two 32x32 layers (their tiles over the
+    tile path's limit: the patch gather), held equal and timed beside."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import csnn_vgg16
+    from repro_torch.core.csnn import encode_input, snn_apply_batched
+    from repro_torch.core.plan import plan_network
+
+    config = bench_config()
+    from yardstick import counts, stats
+    conf = json.loads((config.BENCH_DIR / "configs"
+                       / "csnn_vgg16_cifar.json").read_text())
+    traffic = json.loads((config.BENCH_DIR / "traffic"
+                          / "offline-cifar-b256.json").read_text())
+    builder = config.load_path(conf["builder"])
+    reference = config.load_path(conf["reference"])
+    builder.check_program(conf)
+    net = conf["network"]
+    cfg = csnn_vgg16.FULL
+    plan = plan_network(cfg, **csnn_vgg16.PLAN)
+    params = builder.weights(conf, 2**31 + 29, dev)
+    gen = config.load_module("generators", traffic["inputs"]["generator"])
+    imgs = gen.generate(traffic["inputs"], net).data[:VGG_BATCH].to(dev)
+    spikes = encode_input(imgs, cfg)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = {}
+    logits = counted(f"VGG-16 offline plan, B={VGG_BATCH}",
+                     lambda: snn_apply_batched(params, spikes, cfg, plan,
+                                               collect_stats=False),
+                     launches, exact_launches(plan, cfg.t_steps,
+                                              batch=VGG_BATCH))
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = reference.forward(params, reference.encode(imgs, cfg.t_steps),
+                             net)
+    if not torch.equal(logits, want.logits):
+        fail(f"VGG-16 B={VGG_BATCH}: logits differ from the float64 "
+             f"reference ({where_differ(logits, want.logits)})")
+    distinct = len({tuple(r) for r in logits.cpu().tolist()})
+    if distinct < VGG_BATCH // 2:
+        fail(f"VGG-16: only {distinct} distinct logit rows of {VGG_BATCH}")
+    shapes = [s for s in counts.layer_shapes(net) if s["kind"] == "conv"]
+    density = [float(ev.double().sum()) / (
+        VGG_BATCH * cfg.t_steps * s["in_hw"][0] * s["in_hw"][1] * s["c_in"])
+        for ev, s in zip(want.conv_events, shapes)]
+    adds = float(counts.sample_adds(want.conv_events, want.head_events,
+                                    net).mean())
+    print(f"VGG-16 B={VGG_BATCH}: logits == float64 reference bit for bit, "
+          f"{distinct} distinct rows; {plan.kernel_launches} launches a "
+          f"forward; {adds:.0f} synaptic adds a sample; input density per "
+          f"layer {[round(100 * d, 3) for d in density]} %")
+    if min(density) < 0.01:
+        fail(f"VGG-16: a layer receives under 1 % input density: {density}")
+
+    def fwd():
+        return snn_apply_batched(params, spikes, cfg, plan,
+                                 collect_stats=False)
+
+    fwd()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd()
+        torch.cuda.synchronize(dev)
+    layers = layer_trace(prof.events(), len(plan.layers))
+    for row in layers:
+        lp = plan.layers[row["layer"]]
+        print(f"VGG-16 conv{row['layer']:<2d} {lp.in_hw[0]:2d}x{lp.in_hw[1]:<2d}"
+              f" {lp.c_in:3d}->{lp.c_out:3d} cb {lp.channel_block:3d}: "
+              f"queues {row['queues_ms']:8.3f} ms, launches "
+              f"{row['launches_ms']:8.3f} ms (host); device "
+              f"{row['device_us'] / 1e3:8.3f} ms; path {row['path']}")
+    if any(row["path"] != "tile" for row in layers):
+        fail("VGG-16: a layer's conv unit left the tile path: "
+             f"{[row['path'] for row in layers]}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd()
+        fwd()
+        torch.cuda.synchronize(dev)
+    busy = [(float(e.time_range.start), float(e.time_range.end))
+            for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    lo, hi = min(s for s, _ in busy), max(e for _, e in busy)
+    busy_share = stats.covered(busy) / (hi - lo)
+    ms, enq = vgg_forward_times(dev, params, spikes, cfg, plan)
+    print(f"VGG-16 B={VGG_BATCH} ({card}): {ms:.3f} ms a forward, "
+          f"{VGG_BATCH / ms * 1e3:.1f} samples/s, host enqueue {enq:.3f} ms, "
+          f"busy {100 * busy_share:.2f} % over two forwards, memory peak "
+          f"{peak} B")
+
+    knobs = dict(csnn_vgg16.PLAN)
+    knobs["channel_block"] = [8, 8] + knobs["channel_block"][2:]
+    wide = plan_network(cfg, **knobs)
+    got = counted(f"VGG-16 at channel block 8 on the 32x32 layers, "
+                  f"B={VGG_BATCH}",
+                  lambda: snn_apply_batched(params, spikes, cfg, wide,
+                                            collect_stats=False),
+                  launches, exact_launches(wide, cfg.t_steps,
+                                           batch=VGG_BATCH))
+    if not torch.equal(got, logits):
+        fail("VGG-16 at channel block 8 differs from the pinned plan")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        snn_apply_batched(params, spikes, cfg, wide, collect_stats=False)
+        torch.cuda.synchronize(dev)
+    wide_layers = layer_trace(prof.events(), 2)
+    wms, wenq = vgg_forward_times(dev, params, spikes, cfg, wide)
+    print(f"VGG-16 at channel block 8 on conv0/conv1: {wms:.3f} ms a "
+          f"forward (pinned plan {ms:.3f}), host enqueue {wenq:.3f} ms; "
+          + "; ".join(f"conv{r['layer']} device {r['device_us'] / 1e3:.3f} "
+                      f"ms on the {r['path']} path (pinned "
+                      f"{layers[r['layer']]['device_us'] / 1e3:.3f} ms)"
+                      for r in wide_layers))
+    return {"batch": VGG_BATCH, "launches": plan.kernel_launches,
+            "adds_per_sample": adds, "density": density, "layers": layers,
+            "ms_per_forward": ms, "enqueue_ms": enq,
+            "samples_per_s": VGG_BATCH / ms * 1e3, "busy_share": busy_share,
+            "memory_peak_bytes": peak, "cb8_ms_per_forward": wms,
+            "cb8_layers": wide_layers, "card": card}
+
+
+#: the converted VGG's training: synthetic images (seed 0, not the
+#: cell's pool), AdamW steps of 64 images and their peak learning rate
+#: (``conversion.fit_ann``)
+VGG_TRAIN_N, VGG_TRAIN_STEPS, VGG_TRAIN_LR = 4096, 2000, 1e-3
+
+
+def vgg_converted(dev) -> dict:
+    """Activity of a VGG-16 trained and converted by the port's own path
+    beside the benchmark's drawn-and-gained one: ``conversion.fit_ann``
+    trains the clamped-ReLU ANN of ``csnn_vgg16.FULL`` on ``synth_cifar``
+    images (seed 0) and their labels, ``normalize_params`` balances its
+    thresholds; on the cell's first 256 pool images, each conv layer's
+    input density and fired share at the last step in the float64
+    reference (``bench/gains.layer_walk`` at the weights as they are),
+    and the synaptic adds a sample, for both networks; the ANN's and the
+    converted SNN's accuracy on 512 other images (seed 2)."""
+    import torch
+
+    from repro_torch.configs import csnn_vgg16
+    from repro_torch.core.conversion import (ann_accuracy, fit_ann,
+                                             normalize_params)
+    from repro_torch.core.csnn import (encode_input, init_params,
+                                       snn_apply_batched)
+    from repro_torch.core.plan import plan_network
+
+    config = bench_config()
+    from yardstick import cifar, counts
+    conf = json.loads((config.BENCH_DIR / "configs"
+                       / "csnn_vgg16_cifar.json").read_text())
+    traffic = json.loads((config.BENCH_DIR / "traffic"
+                          / "offline-cifar-b256.json").read_text())
+    gains = config.load_path("gains.py")
+    reference = config.load_path(conf["reference"])
+    net, cfg = conf["network"], csnn_vgg16.FULL
+    gen = config.load_module("generators", traffic["inputs"]["generator"])
+    rows = gen.generate(traffic["inputs"], net).data[:VGG_BATCH].to(dev)
+    xtr, ytr = cifar.synth_cifar(VGG_TRAIN_N, seed=0)
+    xte, yte = cifar.synth_cifar(512, seed=2)
+    t0 = time.perf_counter()
+    ann = fit_ann(init_params(cfg, seed=0, device=dev), cfg, xtr, ytr,
+                  steps=VGG_TRAIN_STEPS, lr=VGG_TRAIN_LR, log_every=500)
+    acc_ann = ann_accuracy(ann, cfg, xte, yte)
+    train_s = time.perf_counter() - t0
+    snn = normalize_params(ann, torch.from_numpy(xtr[:256]).to(dev), cfg)
+    plan = plan_network(cfg, **csnn_vgg16.PLAN)
+    preds = torch.cat([snn_apply_batched(
+        snn, encode_input(torch.from_numpy(xte[i:i + 256]).to(dev), cfg),
+        cfg, plan, collect_stats=False).argmax(-1).cpu()
+        for i in range(0, len(xte), 256)])
+    acc_snn = float((preds == torch.from_numpy(yte).long()).double().mean())
+    drawn = config.load_path(conf["builder"]).weights(conf, 2**31 + 29, dev)
+    out = {"train_images": VGG_TRAIN_N, "train_steps": VGG_TRAIN_STEPS,
+           "train_lr": VGG_TRAIN_LR, "train_s": train_s,
+           "ann_accuracy": acc_ann, "snn_accuracy": acc_snn}
+    for label, params, bits in (("converted", snn, 40),
+                                ("drawn", drawn, conf["init"]["grid_bits"])):
+        walk = gains.layer_walk(params, rows, net, [0] * len(cfg.layers[:-1]),
+                                bits)
+        ref = reference.forward(params, reference.encode(rows, cfg.t_steps),
+                                net)
+        adds = float(counts.sample_adds(ref.conv_events, ref.head_events,
+                                        net).mean())
+        out[label] = {"density": walk["density"], "fired": walk["fired"],
+                      "adds_per_sample": adds}
+        print(f"VGG-16 {label}: input density per layer "
+              f"{[round(100 * d, 3) for d in walk['density']]} %; fired "
+              f"share at the last step {[round(100 * f, 2) for f in walk['fired']]}"
+              f" %; {adds:.0f} synaptic adds a sample")
+    print(f"VGG-16 converted: ANN {100 * acc_ann:.1f} %, SNN "
+          f"{100 * acc_snn:.1f} % on 512 held-out images ({VGG_TRAIN_STEPS} "
+          f"steps at lr {VGG_TRAIN_LR:g} on {VGG_TRAIN_N} images, "
+          f"{train_s:.1f} s)")
+    return out
+
+
+def vgg_main() -> int:
+    """``--vgg``: build, then the VGG phase alone, and the activity of a
+    trained and converted VGG-16 beside it (``vgg_converted``); the
+    readings also go to ``results/vgg_smoke.json``."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    print(f"build: {runtime.build_all():.1f} s")
+    t0 = time.perf_counter()
+    out = vgg_phase(dev, card)
+    out["converted"] = vgg_converted(dev)
+    print(f"VGG phase: {time.perf_counter() - t0:.1f} s")
+    (ROOT / "results").mkdir(exist_ok=True)
+    (ROOT / "results" / "vgg_smoke.json").write_text(json.dumps(out))
     print(json.dumps({"ok": True}))
     return 0
 
@@ -3939,6 +4253,8 @@ def main() -> int:
         return mesh_main()
     if sys.argv[1:2] == ["--crossover"]:
         return crossover_main()
+    if sys.argv[1:2] == ["--vgg"]:
+        return vgg_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -4039,6 +4355,7 @@ def main() -> int:
                   card)
     gather_crossover(dev, card)
     offline_launch_share(dev)
+    vgg_phase(dev, card)
     for line in lm_timing_lines:
         print(line)
     for k in kernels:  # a record at another shape counts its kernel's runs

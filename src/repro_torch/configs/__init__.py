@@ -1,12 +1,14 @@
 """Network configurations of the port: ``--arch`` ids -> modules with
-``FULL`` and ``SMOKE`` (the two CSNN ids, then the ten LM architectures of
-``repro.configs``)."""
-from . import (csnn_paper, csnn_wide, deepseek_v2, gemma3_1b, granite_34b,
-               llama4_maverick, phi3_medium_14b, qwen2_vl_7b, rwkv6_1p6b,
-               stablelm_3b, whisper_medium, zamba2_1p2b)
+``FULL`` and ``SMOKE`` (the three CSNN ids, then the ten LM architectures
+of ``repro.configs``).  ``csnn-vgg16`` is the port's own: the JAX
+package's ``ARCHS`` has no such id."""
+from . import (csnn_paper, csnn_vgg16, csnn_wide, deepseek_v2, gemma3_1b,
+               granite_34b, llama4_maverick, phi3_medium_14b, qwen2_vl_7b,
+               rwkv6_1p6b, stablelm_3b, whisper_medium, zamba2_1p2b)
 from .base import SHAPES, SMOKE_SHAPE, ArchConfig, ShapeConfig
 
-CSNN_ARCHS = {"csnn-paper": csnn_paper, "csnn-wide": csnn_wide}
+CSNN_ARCHS = {"csnn-paper": csnn_paper, "csnn-wide": csnn_wide,
+              "csnn-vgg16": csnn_vgg16}
 LM_ARCHS = {
     "zamba2-1.2b": zamba2_1p2b,
     "rwkv6-1.6b": rwkv6_1p6b,

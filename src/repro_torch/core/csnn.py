@@ -250,7 +250,9 @@ def snn_step_chunk(params: dict, state: CSNNState,
     Returns the new state, or (state, [LayerStats, ...]) with
     ``collect_stats`` (without it no layer computes its statistics).
     Each conv layer's runner call is the span ``csnn.conv<i>`` (``i``
-    its index among the conv layers) in a profiler trace.
+    its index among the conv layers) in a profiler trace, with the
+    scheduler's ``csnn.conv<i>.queues`` and ``csnn.conv<i>.launches``
+    inside it.
 
     The layer boundary: when the next conv layer is pinned to
     ``"fused-handoff"``, the producer emits that layer's

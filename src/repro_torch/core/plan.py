@@ -190,6 +190,15 @@ class NetworkPlan:
     def total_event_slots(self) -> int:
         return self.t_steps * sum(lp.event_slots for lp in self.layers)
 
+    @property
+    def kernel_launches(self) -> int:
+        """The port's kernel launches in one forward (any batch): a conv
+        unit and a threshold unit per (channel block, time step) of every
+        conv layer (``scheduler._run_chunk_from_events``), whatever the
+        chunking; the head launches none of them."""
+        return 2 * self.t_steps * sum(lp.c_out // lp.channel_block
+                                      for lp in self.layers)
+
     def validate(self, cfg) -> "NetworkPlan":
         """Check the plan matches ``cfg`` geometry; returns self."""
         from .csnn import ConvSpec, conv_out_hw

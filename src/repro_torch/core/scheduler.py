@@ -50,6 +50,16 @@ frame-based oracle, ``run_fc_head`` the one-sample head; the kwargs
 shims ``run_conv_layer`` and ``run_conv_layer_batched`` derive a
 one-layer plan on the fly.
 
+Spans.  Inside the layer's ``csnn.conv<i>`` (``csnn.snn_step_chunk``),
+a batched chunk marks the build of its event sets and their layout for
+the launches (``aeq.build_aeq_batched`` and ``segment_pad``, the bank
+masks or the carrier at the network edge, the per-block slabs) as
+``csnn.conv<i>.queues`` (two ranges a chunk: the build, then the
+layout), and the per-(block, t) launch loop as ``csnn.conv<i>.launches``
+(args ``n_blocks``, ``t_steps``); ``conv<i>`` is the layer's parameter
+key, its index among the conv layers, which precede the head.  Without a
+profiler each costs one check (``runtime.spans``).
+
 The kernels' wrappers run their plain versions for CPU tensors, so the
 same code is the CPU reference path.
 """
@@ -65,6 +75,7 @@ from repro_torch.kernels.event_conv.kernel import (
     event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched)
 from repro_torch.kernels.threshold_pool.kernel import (
     threshold_pool_cuda_batched, threshold_pool_cuda_emit)
+from repro_torch.runtime.spans import span
 
 from .aeq import (BatchedEventQueue, FusedHandoff, StreamState,
                   build_aeq_batched, build_bank_masks, build_fused_handoff,
@@ -157,16 +168,18 @@ def run_conv_layer_batched_chunk(
             check_handoff(spikes_in, lp.c_in, (h, w), lp.geometry)
             ho = spikes_in
         else:  # the network edge: dense input frames
-            ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
+            with span(f"{lp.name}.queues"):
+                ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
         return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
                                        carry, emit, collect_stats)
     b_sz, t_steps, h, w, c_in = spikes_in.shape
     fmaps = spikes_in.permute(1, 0, 4, 2, 3)  # (t, B, C_in, H, W)
-    if variant == "banked-cuda":
-        events, counts = _bank_events(fmaps, lp)
-    else:
-        events, counts = _queue_events(
-            build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry), lp)
+    with span(f"{lp.name}.queues"):
+        if variant == "banked-cuda":
+            events, counts = _bank_events(fmaps, lp)
+        else:
+            events, counts = _queue_events(build_aeq_batched(
+                fmaps, lp.capacity, geometry=lp.geometry), lp)
     sparsity = (1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
                 if collect_stats else None)
     return _run_chunk_from_events(
@@ -203,22 +216,25 @@ def run_conv_layer_batched_chunk_streamed(
     b_sz, t_steps, c_in = stream.banks.shape[:3]
     variant = lp.resolve_variant()
     if variant == "fused-handoff":
-        ho = fused_handoff_from_banks(stream.banks, lp.capacity, (h, w),
-                                      lp.geometry)
+        with span(f"{lp.name}.queues"):
+            ho = fused_handoff_from_banks(stream.banks, lp.capacity, (h, w),
+                                          lp.geometry)
         return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
                                        carry, emit, collect_stats)
-    frames = stream_frames(stream, (h, w), lp.geometry)  # (B, t, C_in, H, W)
-    fmaps = frames.transpose(0, 1)                       # (t, B, C_in, H, W)
-    if variant == "banked-cuda":
-        events, counts = _bank_events(fmaps, lp)
-    elif lp.resolve_stream_finalize() == "sort":
-        events, counts = _queue_events(
-            build_aeq_batched(fmaps, lp.capacity, geometry=lp.geometry), lp)
-    else:
-        queues = stream_queues(stream, lp.capacity, (h, w),
-                               geometry=lp.geometry)
-        events, counts = _queue_events(BatchedEventQueue(
-            *(None if x is None else x.transpose(0, 1) for x in queues)), lp)
+    with span(f"{lp.name}.queues"):
+        frames = stream_frames(stream, (h, w), lp.geometry)  # (B,t,C,H,W)
+        fmaps = frames.transpose(0, 1)                       # (t,B,C,H,W)
+        if variant == "banked-cuda":
+            events, counts = _bank_events(fmaps, lp)
+        elif lp.resolve_stream_finalize() == "sort":
+            events, counts = _queue_events(build_aeq_batched(
+                fmaps, lp.capacity, geometry=lp.geometry), lp)
+        else:
+            queues = stream_queues(stream, lp.capacity, (h, w),
+                                   geometry=lp.geometry)
+            events, counts = _queue_events(BatchedEventQueue(
+                *(None if x is None else x.transpose(0, 1)
+                  for x in queues)), lp)
     sparsity = (1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
                 if collect_stats else None)
     return _run_chunk_from_events(
@@ -297,77 +313,82 @@ def _run_chunk_from_events(
     kh, kw = kernels.shape[:2]
     dev = carry.vm.device
 
-    if variant in BANKED:
-        # (nb, nb, C_in, C_out) tap routing -> (n_blocks, C_in, nb, nb, Cb);
-        # weights cast like JAX's astype(vm.dtype) (truncation toward zero)
-        nb = lp.geometry.n_banks
-        taps = (tap_matrix(kernels).to(vm_dtype)
-                .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
-                .contiguous())
-    else:
-        # one contiguous (C_in, B, cap[, 2]) slab per t and conv launch
-        coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
-        valid = events.valid.permute(0, 2, 1, 3).contiguous()
-        kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
-              .permute(3, 2, 0, 1, 4).to(vm_dtype).contiguous())
-        if variant == "interlaced-cuda":
-            conv = partial(event_conv_cuda_interlaced_batched,
-                           event_par=lp.event_par)
-            conv_single = partial(event_conv_cuda_interlaced,
-                                  event_par=lp.event_par)
+    # the event sets laid out for the launches: one slab per (block, t)
+    with span(f"{lp.name}.queues"):
+        if variant in BANKED:
+            # (nb, nb, C_in, C_out) tap routing -> (n_blocks, C_in, nb, nb,
+            # Cb); weights cast like JAX's astype(vm.dtype) (truncation
+            # toward zero)
+            nb = lp.geometry.n_banks
+            taps = (tap_matrix(kernels).to(vm_dtype)
+                    .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
+                    .contiguous())
         else:
-            conv, conv_single = event_conv_cuda_batched, event_conv_cuda
-    bb = bias.reshape(n_blocks, cb).to(vm_dtype)
-    vm_b = _split_blocks(carry.vm.to(vm_dtype), n_blocks, cb)
-    fired0 = _split_blocks(carry.fired, n_blocks, cb)
-    spikes = torch.empty((n_blocks, t_steps, b_sz, h, w, cb),
-                         dtype=torch.bool, device=dev)
-    pooled = None
-    if lp.pool is not None:
-        oh, ow = -(-h // lp.pool), -(-w // lp.pool)
-        pooled = torch.empty((n_blocks, t_steps, b_sz, oh, ow, cb),
+            # one contiguous (C_in, B, cap[, 2]) slab per t and conv launch
+            coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
+            valid = events.valid.permute(0, 2, 1, 3).contiguous()
+            kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
+                  .permute(3, 2, 0, 1, 4).to(vm_dtype).contiguous())
+            if variant == "interlaced-cuda":
+                conv = partial(event_conv_cuda_interlaced_batched,
+                               event_par=lp.event_par)
+                conv_single = partial(event_conv_cuda_interlaced,
+                                      event_par=lp.event_par)
+            else:
+                conv, conv_single = event_conv_cuda_batched, event_conv_cuda
+        bb = bias.reshape(n_blocks, cb).to(vm_dtype)
+        vm_b = _split_blocks(carry.vm.to(vm_dtype), n_blocks, cb)
+        fired0 = _split_blocks(carry.fired, n_blocks, cb)
+        spikes = torch.empty((n_blocks, t_steps, b_sz, h, w, cb),
                              dtype=torch.bool, device=dev)
-    if emit is not None:
-        cap_e, geom_e = emit
-        # carrier of the (post-pool) output; each launch writes the
-        # contiguous slab [t, block's channels]
-        out_masks = torch.empty(
-            handoff_shape(t_steps, c_out, b_sz, lp.out_hw, geom_e),
-            dtype=torch.bool, device=dev)
-        out_count = torch.empty((t_steps, c_out, b_sz), dtype=torch.int32,
-                                device=dev)
-        out_seg = torch.empty((t_steps, c_out, b_sz, geom_e.n_banks),
-                              dtype=torch.int32, device=dev)
+        pooled = None
+        if lp.pool is not None:
+            oh, ow = -(-h // lp.pool), -(-w // lp.pool)
+            pooled = torch.empty((n_blocks, t_steps, b_sz, oh, ow, cb),
+                                 dtype=torch.bool, device=dev)
+        if emit is not None:
+            cap_e, geom_e = emit
+            # carrier of the (post-pool) output; each launch writes the
+            # contiguous slab [t, block's channels]
+            out_masks = torch.empty(
+                handoff_shape(t_steps, c_out, b_sz, lp.out_hw, geom_e),
+                dtype=torch.bool, device=dev)
+            out_count = torch.empty((t_steps, c_out, b_sz), dtype=torch.int32,
+                                    device=dev)
+            out_seg = torch.empty((t_steps, c_out, b_sz, geom_e.n_banks),
+                                  dtype=torch.int32, device=dev)
 
-    for blk in range(n_blocks):
-        vm = vm_b[blk]
-        tile = vm[0]  # the sample's tile when the batch is one
-        fired = fired0[blk]
-        c0, c1 = blk * cb, (blk + 1) * cb
-        for t in range(t_steps):
-            if variant in BANKED:
-                event_conv_cuda_banked(vm, events[t], taps[blk],
-                                       geometry=lp.geometry, out=vm)
-            elif single:  # all C_in in one launch, on the one tile
-                conv_single(tile, coords[t, :, 0], valid[t, :, 0], kb[blk],
-                            out=tile)
-            else:
-                conv(vm, coords[t], valid[t], kb[blk], out=vm)
-            pooled_t = None if pooled is None else pooled[blk, t]
-            if emit is None:
-                threshold_pool_cuda_batched(
-                    vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
-                    halo=(hh, hw), fired_out=spikes[blk, t],
-                    pooled_out=pooled_t)
-            else:
-                threshold_pool_cuda_emit(
-                    vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
-                    halo=(hh, hw), emit_capacity=cap_e, emit_geometry=geom_e,
-                    fired_out=spikes[blk, t], pooled_out=pooled_t,
-                    masks_out=out_masks[t, c0:c1],
-                    count_out=out_count[t, c0:c1],
-                    seg_counts_out=out_seg[t, c0:c1])
-            fired = spikes[blk, t]
+    with span(f"{lp.name}.launches", n_blocks=n_blocks, t_steps=t_steps):
+        for blk in range(n_blocks):
+            vm = vm_b[blk]
+            tile = vm[0]  # the sample's tile when the batch is one
+            fired = fired0[blk]
+            c0, c1 = blk * cb, (blk + 1) * cb
+            for t in range(t_steps):
+                if variant in BANKED:
+                    event_conv_cuda_banked(vm, events[t], taps[blk],
+                                           geometry=lp.geometry, out=vm)
+                elif single:  # all C_in in one launch, on the one tile
+                    conv_single(tile, coords[t, :, 0], valid[t, :, 0], kb[blk],
+                                out=tile)
+                else:
+                    conv(vm, coords[t], valid[t], kb[blk], out=vm)
+                pooled_t = None if pooled is None else pooled[blk, t]
+                if emit is None:
+                    threshold_pool_cuda_batched(
+                        vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
+                        halo=(hh, hw), fired_out=spikes[blk, t],
+                        pooled_out=pooled_t)
+                else:
+                    threshold_pool_cuda_emit(
+                        vm, bb[blk].contiguous(), fired, v_t=v_t, pool=lp.pool,
+                        halo=(hh, hw), emit_capacity=cap_e,
+                        emit_geometry=geom_e,
+                        fired_out=spikes[blk, t], pooled_out=pooled_t,
+                        masks_out=out_masks[t, c0:c1],
+                        count_out=out_count[t, c0:c1],
+                        seg_counts_out=out_seg[t, c0:c1])
+                fired = spikes[blk, t]
 
     new_carry = ConvCarry(vm=_merge_blocks(vm_b),
                           fired=_merge_blocks(spikes[:, -1]))

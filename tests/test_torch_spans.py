@@ -12,6 +12,7 @@ the JAX package's.
     PYTHONPATH=src python -m pytest -q tests/test_torch_spans.py
 """
 import asyncio
+import re
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ TIMEOUT_S = 60.0
 CFG = tpaper.SMOKE          # 12x12x1-8C3-8C3-P3-F10, T=4
 N_CONV = 2
 KNOBS = dict(capacity=144, channel_block=4, batch_tile=4)
+LAYER = re.compile(r"csnn\.conv\d+")  # a layer's span, not one inside it
 
 
 @pytest.fixture(scope="module")
@@ -99,7 +101,9 @@ def test_no_profiler_no_span(net, entered):
     # the same calls under a profiler pass through the patched entry
     _profiled(lambda: tc.snn_apply_batched(
         params, tc.encode_input(imgs, CFG), CFG, plan, collect_stats=False))
-    assert entered == ["csnn.conv0", "csnn.conv1"] * 2 + ["csnn.readout"]
+    layer = [f"csnn.conv{i}{inner}" for i in range(N_CONV)
+             for inner in ("", ".queues", ".queues", ".launches")]
+    assert entered == layer * 2 + ["csnn.readout"]
 
 
 def test_microbatch_spans_per_batch(net):
@@ -121,11 +125,11 @@ def test_microbatch_spans_per_batch(net):
     for (_, l0, l1, _), (_, r0, _, _) in zip(launches, resolves):
         assert l1 <= r0   # the device wait lies between them
         inside = [n for n, s, e, _ in events if l0 <= s and e <= l1
-                  and n.startswith("csnn.conv")]
+                  and LAYER.fullmatch(n)]
         # one span per conv layer and chunk of the batch's forward
         assert sorted(inside) == sorted(
             [f"csnn.conv{i}" for i in range(N_CONV)] * _chunks(plan))
-    assert sum(n.startswith("csnn.conv") for n, *_ in events) == \
+    assert sum(bool(LAYER.fullmatch(n)) for n, *_ in events) == \
         2 * N_CONV * _chunks(plan)
     assert sum(n == "csnn.readout" for n, *_ in events) == 2
 
@@ -141,6 +145,33 @@ def test_continuous_spans_per_chunk(net):
     resolves = [a["seq"] for n, *_, a in events if n == "csnn.engine.resolve"]
     assert launches == resolves == list(range(chunks))
     assert sum(n == "csnn.engine.encode" for n, *_ in events) == 3
+
+
+@pytest.mark.parametrize("variant,event_par", [
+    ("interlaced-cuda", 8), ("fused-handoff", 1)])
+def test_queue_and_launch_spans_inside_each_layer(net, variant, event_par):
+    """Each layer's span holds, per chunk, the build and layout of its
+    event sets (``.queues``) and then its launch loop (``.launches``,
+    with the block and step counts), in that order and inside it."""
+    _, params, imgs = net
+    plan = tplan(CFG, t_chunk=2, event_par=event_par,
+                 variant=[variant, variant], **KNOBS)
+    _, events = _profiled(lambda: tc.snn_apply_batched(
+        params, tc.encode_input(imgs, CFG), CFG, plan, collect_stats=False))
+    outer = [e for e in events if LAYER.fullmatch(e[0])]
+    assert len(outer) == N_CONV * _chunks(plan)
+    for name, l0, l1, _ in outer:
+        inner = [(n, a) for n, s, e, a in events
+                 if n.startswith(name + ".") and l0 <= s and e <= l1]
+        kinds = [n[len(name) + 1:] for n, _ in inner]
+        # the edge layer builds its carrier, then lays the slabs out; a
+        # consumer of an emitted carrier only lays them out
+        assert kinds in (["queues", "queues", "launches"],
+                         ["queues", "launches"]), kinds
+        assert name != "csnn.conv0" or len(kinds) == 3
+        lp = plan.layers[int(name[len("csnn.conv"):])]
+        assert inner[-1][1] == {"n_blocks": lp.c_out // lp.channel_block,
+                                "t_steps": plan.chunk_steps}
 
 
 def test_counters_grow_with_every_batch(net):
