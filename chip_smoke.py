@@ -6,6 +6,7 @@
     python3 chip_smoke.py --stress-emit SECONDS
     python3 chip_smoke.py --crossover
     python3 chip_smoke.py --vgg
+    python3 chip_smoke.py --aeq-build
 
 The second form only builds the given base-mode threshold sources beside
 this checkout's, holds each against the plain version and times them in
@@ -22,7 +23,10 @@ table and the offline plan's launch counts of phase 7.  The fifth runs
 phase 7's VGG-16 check alone, then trains and converts a VGG-16 with the
 port's own path and reads its activity beside the benchmark's drawn
 weights (``vgg_converted``), and writes the readings to
-``results/vgg_smoke.json``.
+``results/vgg_smoke.json``.  The sixth builds, holds the event-set
+builder against its plain version (phase 3's ``check_aeq_build``), times
+it (phase 7's ``aeq_build_timing``) and runs phase 7's offline paper plan
+and VGG-16 checks with their exact launch counts.
 
 Phases (any failure exits non-zero before the result line):
 
@@ -53,11 +57,16 @@ Phases (any failure exits non-zero before the result line):
    tile path; the tile path as the wrapper chooses it at the offline
    benchmark's conv shapes (f32/i16/i8, padded and mixed groups,
    repeated coordinates, fresh and in place) and one launch on each side
-   of the crossover, each counted on its own path;
+   of the crossover, each counted on its own path; the event-set builder
+   (``aeq_build``) at every cell's queue layer (the paper net's 28x28x1,
+   28x28x32, 10x10x32, VGG-16's 32x32x3 to 2x2x512), event_par 1-8,
+   capacities at and below the demand, random, empty, full and strided
+   maps, and the 1x1 and 5x5 windows, against its plain version (the
+   composition it replaced) in every element;
 3b. the auditor (``repro_torch.analysis``): the plan contracts, the hazard
    proofs, the kernel audit with ``device="cuda"`` (every wrapper's
-   operands in red zones; each of the seven kernels and the tile path must
-   count a launch),
+   operands in red zones; each kernel of ``runtime.LAUNCHES`` must count
+   a launch),
    the lint and the self-test, one line per pass with its obligations per
    rule and its time; then ``python -m repro_torch.analysis --only kernels
    --device cuda`` under ``compute-sanitizer --tool memcheck`` with
@@ -174,7 +183,7 @@ Phases (any failure exits non-zero before the result line):
    per (channel block, time step) of its layers (``exact_launches``,
    derived from ``LayerPlan.resolve_variant``: at B=8 the fused run 50
    banked convs, 40 emits and 10 base thresholds, every other run 50 +
-   50; the micro-batching engine 2 x (50 + 50); the continuous engine 10
+   50, and the queue runs one builder launch per layer and chunk; the micro-batching engine 2 x (50 + 50); the continuous engine 10
    conv + 10 threshold per chunk, the conv through the single-queue
    kernel at bucket 1; each stream engine run as one forward of its
    plan; the tuned runs by their winners; each sharded run its shards'
@@ -221,7 +230,9 @@ Phases (any failure exits non-zero before the result line):
    batched interlaced unit (the patch gather against the tile path at the
    offline benchmark's three conv shapes, Q from 8 to 1024, and the tile
    path at conv1, Q=1024, beside its bound, plain version and
-   ``F.conv2d``), and the offline benchmark's plan at B=1024 with exact
+   ``F.conv2d``), the event-set builder at the paper cell's conv1 (B=1024)
+   and VGG-16's conv1 and conv8 (B=256) beside its byte bound and its plain
+   version (the glue it replaced), and the offline benchmark's plan at B=1024 with exact
    launch counts (every batched interlaced launch on the tile path, the
    forward equal to ``event_par=1``'s; one sample never on it); last
    VGG-16 (``csnn_vgg16.FULL``) at B=256 under its pinned plan on the
@@ -425,6 +436,7 @@ def check_kernels(dev) -> dict:
     check_single(g, dev, same)
     check_seq_gather(g, dev, same)
     check_interlaced_gather(g, dev, same)
+    check_aeq_build(g, dev, same)
     print(f"kernels: every kernel equal to its plain version on the card "
           f"(max abs err {worst})")
     return worst
@@ -1031,6 +1043,147 @@ def offline_launch_share(dev) -> None:
           f"{launches['event_conv_interlaced']} batched interlaced launches")
 
 
+# ------------------------------------------------- the event-set builder
+#: the cells' queue layers as (name, H, W, C_in, capacity, event_par,
+#: input density): the paper net's three (densities as OFFLINE_CONVS in
+#: tests/test_torch_gpu.py) and VGG-16's by map size (PERF.md §4)
+AEQ_CASES = (
+    ("paper conv0", 28, 28, 1, 784, 8, 0.28),
+    ("paper conv1", 28, 28, 32, 784, 8, 0.16),
+    ("paper conv2", 10, 10, 32, 100, 4, 0.27),
+    ("vgg conv0", 32, 32, 3, 1024, 8, 0.586),
+    ("vgg conv1", 32, 32, 64, 1024, 8, 0.0525),
+    ("vgg conv2", 16, 16, 64, 256, 8, 0.0588),
+    ("vgg conv4", 8, 8, 128, 64, 4, 0.0654),
+    ("vgg conv8", 4, 4, 512, 16, 2, 0.0198),
+    ("vgg conv10", 2, 2, 512, 4, 2, 0.0531),
+)
+#: the timed ones, with their batch: (case name, B)
+AEQ_TIMED = (("paper conv1", 1024), ("vgg conv1", 256), ("vgg conv8", 256))
+
+
+def aeq_spikes(g, kind, shape, density, dev):
+    """(B, T, H, W, C) bool maps: random at ``density``, empty, full, or
+    a strided view (a (T, C, B, H, W + 2) buffer sliced and permuted)."""
+    import torch
+    b, t, h, w, c = shape
+    if kind == "empty":
+        return torch.zeros(shape, dtype=torch.bool, device=dev)
+    if kind == "full":
+        return torch.ones(shape, dtype=torch.bool, device=dev)
+    if kind == "view":
+        base = (torch.rand((t, c, b, h, w + 2), generator=g) < density).to(dev)
+        return base[..., 1:w + 1].permute(2, 0, 3, 4, 1)
+    return (torch.rand(shape, generator=g) < density).to(dev)
+
+
+def check_aeq_build(g, dev, same) -> None:
+    """Phase 3: the event-set builder against its plain version (the
+    composition it replaced, run on the card) at every cell's queue
+    layer, B=8 and T=5: event_par 1, 2, 4, 8 and the layer's own,
+    capacity H*W and half the expected demand (truncating), random maps at
+    the layer's density, empty, full and a strided view; the 1x1 and 5x5
+    windows at the paper's conv1 map; each call one counted launch."""
+    from repro_torch.core.geometry import GEOM_3X3, ConvGeometry
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+    from repro_torch.kernels.aeq_build.ref import aeq_build_ref
+
+    def check(tag, spikes, capacity, ep, geom):
+        before = runtime.LAUNCHES["aeq_build"]
+        got = aeq_build_cuda(spikes, capacity, ep, geom)
+        if runtime.LAUNCHES["aeq_build"] != before + 1:
+            fail(f"aeq_build {tag}: not one counted launch")
+        want = aeq_build_ref(spikes, capacity, ep, geom)
+        for part, a, b in zip(("coords", "valid", "count"), got, want):
+            same(f"aeq_build {tag} {part}", a, b)
+
+    n = 0
+    for name, h, w, c, cap, ep0, density in AEQ_CASES:
+        for ep in sorted({1, 2, 4, 8, ep0}):
+            for kind in ("random", "empty", "full", "view"):
+                spikes = aeq_spikes(g, kind, (B, 5, h, w, c), density, dev)
+                for capacity in (cap, max(1, int(density * h * w) // 2)):
+                    check(f"{name} ep={ep} {kind} cap={capacity}", spikes,
+                          capacity, ep, GEOM_3X3)
+                    n += 1
+    for k in (1, 5):
+        spikes = aeq_spikes(g, "random", (B, 5, 28, 28, 32), 0.16, dev)
+        for capacity, ep in ((784, 8), (60, 4), (784, 1)):
+            check(f"k={k} ep={ep} cap={capacity}", spikes, capacity, ep,
+                  ConvGeometry(k, k))
+            n += 1
+    print(f"aeq_build: {n} launches equal to the plain version")
+
+
+def aeq_build_timing(dev, card) -> list:
+    """Phase 7: device ms of one builder launch (CUDA graph replay) at the
+    paper cell's conv1 (B=1024) and VGG's conv1 and conv8 (B=256), T=5, at
+    the layers' densities, beside its bound (the spike bytes read and the
+    queue bytes written once, at the HBM peak) and its plain version on
+    the card, which is the torch glue it replaced (``build_aeq_batched``,
+    ``segment_pad``, the permutes); returns the kernel records."""
+    import torch
+
+    from repro_torch.core.aeq import interlaced_capacity
+    from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+    from repro_torch.kernels.aeq_build.ref import aeq_build_ref
+    from repro_torch.tune.crosscheck import roofline_seconds
+
+    g = torch.Generator().manual_seed(30)
+    cases = {case[0]: case for case in AEQ_CASES}
+    records = []
+    for name, b in AEQ_TIMED:
+        _, h, w, c, cap, ep, density = cases[name]
+        spikes = aeq_spikes(g, "random", (b, 5, h, w, c), density, dev)
+        slots = 5 * c * b * interlaced_capacity(cap, ep)
+        nbytes = spikes.numel() + 9 * slots + 4 * 5 * b * c
+        bound, by = roofline_seconds(nbytes, 0)
+        ms = graph_time_ms(lambda: aeq_build_cuda(spikes, cap, ep), 20)
+        plain = cuda_time_ms(lambda: aeq_build_ref(spikes, cap, ep), 3)
+        print(f"aeq_build {name} B={b}: {ms:.5f} device ms a launch, bound "
+              f"{bound * 1e3:.5f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+              f"{100 * bound * 1e3 / ms:.1f} % of it), plain version (the "
+              f"replaced glue) {plain:.4f} ms, {plain / ms:.1f}x; {card}")
+        records.append(dict(name=f"aeq_build {name} B={b}", route="cuda",
+                            source="src/repro_torch/kernels/csrc/aeq_build.cu",
+                            replaces=None, ms=ms, plain_ms=plain,
+                            bound_ms=bound * 1e3, bound_by=by,
+                            library_ms=None))
+    return records
+
+
+def aeq_build_main() -> int:
+    """``--aeq-build``: build, phase 3's builder check, its timing, then
+    the offline paper plan at B=1024 and the VGG phase with their exact
+    launch counts (the builder once per queue layer a forward)."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    print(card)
+    print(f"build: {runtime.build_all():.1f} s")
+    for line in runtime.BUILD_LOGS.get("aeq_build", "").splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"ptxas aeq_build: {line.strip()}")
+    g = torch.Generator().manual_seed(12)
+
+    def same(name, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            fail(f"{name}: kernel != plain version ({where_differ(a, b)})")
+
+    t0 = time.perf_counter()
+    check_aeq_build(g, dev, same)
+    print(f"aeq_build check: {time.perf_counter() - t0:.1f} s")
+    aeq_build_timing(dev, card)
+    offline_launch_share(dev)
+    vgg_phase(dev, card)
+    print(json.dumps({"ok": True}))
+    return 0
+
+
 def crossover_main() -> int:
     """``--crossover``: build, hold the interlaced unit (both paths)
     against its plain version (:func:`check_interlaced_gather`), print the
@@ -1501,17 +1654,21 @@ BATCHED_PATHS = ("serve plan (interlaced)", "event_par=1 (sequential)",
                  "fused-handoff", "banked-cuda")
 
 
-def exact_launches(plan, steps, *, batch=B, emit=True, buckets=()) -> dict:
+def exact_launches(plan, steps, *, batch=B, emit=True, buckets=(),
+                   chunk=None, streamed=False) -> dict:
     """Launches of each kernel in ``steps`` time steps under ``plan``,
     derived from its layers' resolved variants: each conv layer launches
     its conv unit and its threshold unit once per (channel block, time
-    step) over all input channels.  A batch of one takes the single-queue
-    kernels of the queue variants.  With ``emit`` (the batched runners;
-    ``snn_apply`` emits nothing), a layer whose consumer resolves to
-    ``"fused-handoff"`` thresholds through the emit kernel, every other
-    layer through the base mode.  With ``buckets`` (the continuous engine
-    at one time step per chunk: each chunk's occupancy bucket), the sum
-    of one step per chunk at that bucket."""
+    step) over all input channels, and a queue layer (sequential or
+    interlaced) the event-set builder once per chunk of ``chunk`` steps
+    (``plan.chunk_steps`` by default; ``snn_apply`` runs whole-T), except
+    a ``streamed`` input layer that finalizes by ranks.  A batch of one
+    takes the single-queue kernels of the queue variants.  With ``emit``
+    (the batched runners; ``snn_apply`` emits nothing), a layer whose
+    consumer resolves to ``"fused-handoff"`` thresholds through the emit
+    kernel, every other layer through the base mode.  With ``buckets``
+    (the continuous engine at one time step per chunk: each chunk's
+    occupancy bucket), the sum of one step per chunk at that bucket."""
     if buckets:
         out = {}
         for b in buckets:
@@ -1522,11 +1679,16 @@ def exact_launches(plan, steps, *, batch=B, emit=True, buckets=()) -> dict:
 
     from repro_torch.kernels.event_conv.kernel import sm_count, tile_path
     out = {}
+    chunks = -(-steps // (chunk or plan.chunk_steps))
     nxt = [lp.resolve_variant() for lp in plan.layers[1:]] + [None]
-    for lp, consumer in zip(plan.layers, nxt):
+    for i, (lp, consumer) in enumerate(zip(plan.layers, nxt)):
         n = steps * lp.c_out // lp.channel_block
         variant = lp.resolve_variant()
         conv = CONV_KERNEL[variant]
+        if variant in ("sequential", "interlaced-cuda") and not (
+                streamed and i == 0
+                and lp.resolve_stream_finalize() == "ranks"):
+            out["aeq_build"] = out.get("aeq_build", 0) + chunks
         if batch == 1 and variant in ("sequential", "interlaced-cuda"):
             conv += "_single"
         thr = ("threshold_pool_emit" if emit and consumer == "fused-handoff"
@@ -3362,7 +3524,7 @@ def engine_path(dev, cfg, params, plan, launches):
         eng.warmup()
         got = counted(name, lambda e=eng: no_sync(
             lambda: serve_all(e, traces)), launches,
-            exact_launches(splan, scfg.t_steps))
+            exact_launches(splan, scfg.t_steps, chunk=1, streamed=True))
         check(f"csnn_paper.FULL 2-polarity {name}", got, swant, eng)
         hold(f"csnn_paper.FULL 2-polarity streamed forward, {name[8:]}",
              forward(sparams, StreamState(banks), scfg, splan),
@@ -4255,6 +4417,8 @@ def main() -> int:
         return crossover_main()
     if sys.argv[1:2] == ["--vgg"]:
         return vgg_main()
+    if sys.argv[1:2] == ["--aeq-build"]:
+        return aeq_build_main()
     from repro_torch.configs import csnn_paper, csnn_wide
     from repro_torch.kernels import runtime
 
@@ -4354,6 +4518,7 @@ def main() -> int:
     timing_engine(dev, csnn_paper.FULL, params, serve_plan, stream, splans,
                   card)
     gather_crossover(dev, card)
+    kernels += aeq_build_timing(dev, card)
     offline_launch_share(dev)
     vgg_phase(dev, card)
     for line in lm_timing_lines:

@@ -25,8 +25,9 @@ replaces ``oob-blockspec-bounds``: the operands every sweep plan and
 kernel-sweep shape hands each wrapper pass that wrapper's own checks.
 
 ``kernels`` (:mod:`.kernel_audit`) — JAX's four ids with the wrappers on
-the audit device (``cuda``: the seven CUDA kernels and the tile path of
-the batched interlaced unit, each of which must count a launch; ``cpu``:
+the audit device (``cuda``: the seven conv and threshold kernels, the
+tile path of the batched interlaced unit and the event-set builder, each
+of which must count a launch; ``cpu``:
 their plain versions): ``kernel-shape-contract``,
 ``kernel-value-parity``, ``kernel-checkify`` (explicit index and NaN
 checks, as torch has no ``checkify``), ``kernel-sat-overflow``.  Every

@@ -5,9 +5,9 @@ Every kernel in ``kernels/`` ships with a plain PyTorch version
 (``ref.py``) and an exactness claim.  This pass re-verifies the contract
 between the two per sweep geometry and dtype (JAX's ``_sweep``: float32,
 int16 and int8, k in {1, 3, 5}), on the audit device: ``cuda`` launches
-the seven CUDA kernels (and the tile path of the batched interlaced unit)
-through their wrappers, ``cpu`` runs the wrappers'
-plain versions.  The references always run on the CPU.  JAX's four rule
+the seven conv and threshold kernels, the tile path of the batched
+interlaced unit and the event-set builder (``aeq_build``) through their
+wrappers, ``cpu`` runs the wrappers' plain versions.  The references always run on the CPU.  JAX's four rule
 ids:
 
 * ``kernel-shape-contract`` — every wrapper's outputs have the shapes and
@@ -18,10 +18,13 @@ ids:
   the deduplicated AEQ through both interlaced gathers and the tile path
   at the case's ``event_par``; its bank masks through the banked conv; the threshold
   unit at pool 3 and without, base and emit (capacity H*W // 2), the
-  emitted masks also against ``aeq.build_fused_handoff``.  Compared by
+  emitted masks also against ``aeq.build_fused_handoff``; the event-set
+  builder on a map, its complement and a full map read through a strided
+  view, at the case's capacity and ``event_par``, against its plain
+  version (``build_aeq_batched`` + ``segment_pad``, permuted).  Compared by
   value (``torch.equal``): a CUDA gather skips invalid slots where
   Pallas adds +0.0, so a -0.0 cell stays -0.0.  After a ``cuda`` pass
-  every one of the seven kernels and the tile path must have counted a
+  every kernel of ``runtime.LAUNCHES`` must have counted a
   launch (``runtime.LAUNCHES``), so none is quietly replaced by its plain
   version.
 * ``kernel-checkify`` — torch has no ``checkify``: the plain datapaths
@@ -52,8 +55,9 @@ from .report import Report
 _SAT = {8: (-128, 127), 16: (-32768, 32767)}
 #: tiles of the batched entries in the shape contract (JAX's q = 3)
 QUEUES = 3
-#: the seven CUDA kernels and the tile path of the batched interlaced
-#: unit, by their launch counters' names
+#: the seven conv and threshold kernels, the tile path of the batched
+#: interlaced unit and the event-set builder, by their launch counters'
+#: names
 KERNELS = tuple(LAUNCHES)
 
 
@@ -183,11 +187,13 @@ class RedZones:
 def check_shape_contracts(report: Optional[Report] = None, *,
                           device="cpu") -> Report:
     """Every wrapper on ``device`` against its plain version on the CPU:
-    output shapes and dtypes, all seven entries and the tile path, per
-    sweep case (the threshold unit at pool 3 and without, base and
-    emit)."""
+    output shapes and dtypes, all seven entries, the tile path and the
+    event-set builder (its outputs zoned), per sweep case (the threshold
+    unit at pool 3 and without, base and emit)."""
     from repro_torch.core.aeq import build_aeq_batched, segment_pad
     from repro_torch.core.event_conv import tap_matrix
+    from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+    from repro_torch.kernels.aeq_build.ref import aeq_build_ref
     from repro_torch.kernels.event_conv import kernel as ek
     from repro_torch.kernels.event_conv import ref as er
     from repro_torch.kernels.threshold_pool import kernel as tk
@@ -197,6 +203,7 @@ def check_shape_contracts(report: Optional[Report] = None, *,
     zones = RedZones(device, rep)
     put = zones.put
     rng = np.random.default_rng(3)
+    brng = np.random.default_rng(13)  # the builder's maps
 
     def compare(name, got, want):
         got = got if isinstance(got, (list, tuple)) else [got]
@@ -245,6 +252,15 @@ def check_shape_contracts(report: Optional[Report] = None, *,
             compare(f"{name}[{case}]",
                     kfn(*map(put, args), out=out, **kw), rfn(*args, **kw))
             zones.verify(f"kernel:{name}[{case}]")
+        # the event-set builder on a (QUEUES, 2, H, W, C) chunk, its
+        # outputs zoned
+        spk = torch.from_numpy(brng.random((QUEUES, 2, h, w, c)) < 0.4)
+        want = aeq_build_ref(spk, e, par, geom)
+        outs = {k: zones.empty(t.shape, t.dtype) for k, t in zip(
+            ("coords_out", "valid_out", "count_out"), want)}
+        compare(f"aeq_build[{case}]",
+                aeq_build_cuda(put(spk), e, par, geom, **outs), want)
+        zones.verify(f"kernel:aeq_build[{case}]")
         compare(f"event_conv_banked[{case}]",
                 ek.event_conv_cuda_banked(put(vm), put(masks), put(taps),
                                           geometry=geom,
@@ -288,6 +304,8 @@ def check_value_parity(report: Optional[Report] = None, *,
     from repro_torch.core.aeq import (build_aeq, build_fused_handoff,
                                       segment_pad)
     from repro_torch.core.event_conv import apply_events, pad_vm, tap_matrix
+    from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+    from repro_torch.kernels.aeq_build.ref import aeq_build_ref
     from repro_torch.kernels.event_conv import kernel as ek
     from repro_torch.kernels.event_conv.ref import (event_conv_ref,
                                                     event_conv_ref_batched)
@@ -297,6 +315,7 @@ def check_value_parity(report: Optional[Report] = None, *,
     zones = RedZones(device, rep)
     put = zones.put
     rng = np.random.default_rng(7)
+    brng = np.random.default_rng(17)  # the builder's maps
 
     def hold(ok: bool, where: str, message: str) -> None:
         if ok:
@@ -371,6 +390,18 @@ def check_value_parity(report: Optional[Report] = None, *,
         hold(_same(got, torch.stack(bases)),
              f"kernel:event_conv_banked[{case}]",
              "banked conv diverges from the sequential apply_events oracle")
+        # the event-set builder: a map, its complement and a full one per
+        # channel (the capacity truncates them), read through a strided
+        # view of a zoned buffer (T, C, B, H, W)
+        one = brng.random((2, h, w, c)) < 0.4
+        spk = torch.from_numpy(np.stack([one, ~one, np.ones_like(one)]))
+        view = put(spk.permute(1, 4, 0, 2, 3).contiguous()).permute(
+            2, 0, 3, 4, 1)
+        got = aeq_build_cuda(view, e, par, geom)
+        hold(all(map(_same, got, aeq_build_ref(spk, e, par, geom))),
+             f"kernel:aeq_build[{case}]",
+             f"event-set builder (capacity {e}, event_par={par}) diverges "
+             f"from build_aeq_batched + segment_pad in the launch layout")
         # the threshold unit, base and emit; a capacity below h*w keeps the
         # rank truncation live
         bias = torch.from_numpy(rng.standard_normal((c,)).astype(np.float32)
@@ -627,7 +658,7 @@ def check_saturation(apply_fn: Optional[Callable] = None, *,
 def run_kernel_audit(report: Optional[Report] = None, *,
                      device="cuda") -> Report:
     """Every check over the sweep, the wrappers on ``device``.  On a CUDA
-    device each of the seven kernels and the tile path must count a launch
+    device each kernel of :data:`KERNELS` must count a launch
     (``runtime.LAUNCHES``), or the pass is flagged."""
     rep = report if report is not None else Report()
     dev = torch.device(device)

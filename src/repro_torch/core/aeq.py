@@ -12,7 +12,10 @@ to the JAX package (the serve plan truncates on the main path).
 Every queue also carries its column segments (``seg_offsets`` /
 ``seg_counts``); ``segment_pad`` re-lays a queue so each segment starts
 at and is padded to a multiple of ``event_par`` — the layout the
-interlaced conv kernel consumes.
+interlaced conv kernel consumes.  ``build_launch_queues`` gives the
+queues of a whole spike chunk in the conv unit's launch layout: on the
+card one launch of the builder kernel (``kernels/aeq_build``), on the CPU
+its plain version, ``build_aeq_batched`` then ``segment_pad``.
 
 The banked variants skip the queue: ``interlace`` lays a map out as the
 n_banks membrane RAM banks, ``ranked_keep`` truncates by cumulative ranks
@@ -238,6 +241,25 @@ def segment_pad(queue: BatchedEventQueue | EventQueue, event_par: int,
         seg_offsets=pad_off.to(torch.int32).reshape(*lead, nb),
         seg_counts=queue.seg_counts)
     return out.queue_at((0,)) if single else out
+
+
+def build_launch_queues(spikes: torch.Tensor, capacity: int, event_par: int,
+                        geometry: ConvGeometry = GEOM_3X3
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The conv unit's queues of a (B, T, H, W, C_in) bool spike chunk,
+    already in its launch layout: coords (T, C_in, B, cap_pad, 2) int32
+    and valid (T, C_in, B, cap_pad) bool, contiguous, and the demand
+    count (T, B, C_in) int32.  ``cap_pad`` is
+    ``interlaced_capacity(capacity, event_par)``, ``capacity`` at
+    ``event_par`` 1.
+
+    Equal to ``segment_pad(build_aeq_batched(fmaps, capacity),
+    event_par)`` over the (t, b, c_in) maps, permuted to (t, c_in, b):
+    that composition is the plain version a CPU tensor runs; a CUDA
+    tensor launches the builder kernel (``kernels/aeq_build``), which
+    reads ``spikes`` through its strides."""
+    from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+    return aeq_build_cuda(spikes, capacity, event_par, geometry)
 
 
 def scatter_aeq(queue: EventQueue, shape: tuple[int, int]) -> torch.Tensor:

@@ -12,10 +12,9 @@ port's choice: the Pallas kernels aliased their input the same way).
 
 Variants (``LayerPlan.resolve_variant``):
 
-* ``"sequential"`` — queues (``aeq.build_aeq_batched``), one
-  ``event_conv_cuda_batched`` launch per (block, t) over all input
-  channels, applied channel by channel as the JAX package's ``c_in`` loop
-  applies them;
+* ``"sequential"`` — queues, one ``event_conv_cuda_batched`` launch per
+  (block, t) over all input channels, applied channel by channel as the
+  JAX package's ``c_in`` loop applies them;
 * ``"interlaced-cuda"`` — segment-padded queues, one
   ``event_conv_cuda_interlaced_batched`` launch per (block, t) over all
   input channels: the same gather with the interlaced keep predicate;
@@ -23,6 +22,10 @@ Variants (``LayerPlan.resolve_variant``):
   zero macro cell per side), one ``event_conv_cuda_banked`` launch per
   (block, t) over all input channels;
 * ``"fused-handoff"`` — the same kernel over the fused-handoff carrier.
+
+The two queue variants build every (t, b, c_in) queue of the chunk with
+one ``aeq.build_launch_queues`` (on the card one launch of the builder
+kernel, ``kernels/aeq_build``), already in the launch layout.
 
 Fused spike emission.  The JAX package builds the carrier at the layer
 boundary with ``aeq.build_fused_handoff`` of the producer's dense
@@ -52,8 +55,8 @@ one-layer plan on the fly.
 
 Spans.  Inside the layer's ``csnn.conv<i>`` (``csnn.snn_step_chunk``),
 a batched chunk marks the build of its event sets and their layout for
-the launches (``aeq.build_aeq_batched`` and ``segment_pad``, the bank
-masks or the carrier at the network edge, the per-block slabs) as
+the launches (``aeq.build_launch_queues``, the bank masks or the carrier
+at the network edge, then the per-block slabs) as
 ``csnn.conv<i>.queues`` (two ranges a chunk: the build, then the
 layout), and the per-(block, t) launch loop as ``csnn.conv<i>.launches``
 (args ``n_blocks``, ``t_steps``); ``conv<i>`` is the layer's parameter
@@ -78,7 +81,7 @@ from repro_torch.kernels.threshold_pool.kernel import (
 from repro_torch.runtime.spans import span
 
 from .aeq import (BatchedEventQueue, FusedHandoff, StreamState,
-                  build_aeq_batched, build_bank_masks, build_fused_handoff,
+                  build_bank_masks, build_fused_handoff, build_launch_queues,
                   check_handoff, fused_handoff_from_banks, handoff_shape,
                   segment_pad, stream_frames, stream_queues)
 from .event_conv import conv2d_same, tap_matrix
@@ -173,13 +176,15 @@ def run_conv_layer_batched_chunk(
         return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
                                        carry, emit, collect_stats)
     b_sz, t_steps, h, w, c_in = spikes_in.shape
-    fmaps = spikes_in.permute(1, 0, 4, 2, 3)  # (t, B, C_in, H, W)
     with span(f"{lp.name}.queues"):
         if variant == "banked-cuda":
-            events, counts = _bank_events(fmaps, lp)
+            events, counts = _bank_events(
+                spikes_in.permute(1, 0, 4, 2, 3), lp)  # (t, B, C_in, H, W)
         else:
-            events, counts = _queue_events(build_aeq_batched(
-                fmaps, lp.capacity, geometry=lp.geometry), lp)
+            coords, valid, counts = build_launch_queues(
+                spikes_in.to(torch.bool), lp.capacity, lp.event_par,
+                lp.geometry)
+            events = (coords, valid)
     sparsity = (1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
                 if collect_stats else None)
     return _run_chunk_from_events(
@@ -205,9 +210,10 @@ def run_conv_layer_batched_chunk_streamed(
     stream: :class:`StreamState` with banks (B, t_chunk, C_in, n_banks,
     HB, WB).  Only the event sets are built differently, one route per
     variant: the queue variants finalize the banks with
-    ``aeq.stream_queues`` (``lp.resolve_stream_finalize() == "sort"``:
-    ``build_aeq_batched`` over the dense bank view), then ``segment_pad``
-    as the binned path; ``"banked-cuda"`` builds its bank masks from the
+    ``aeq.stream_queues`` and ``segment_pad``, or
+    (``lp.resolve_stream_finalize() == "sort"``) with
+    ``aeq.build_launch_queues`` over the dense bank view, as the binned
+    path; ``"banked-cuda"`` builds its bank masks from the
     dense bank view; ``"fused-handoff"`` takes its carrier from the banks
     (``aeq.fused_handoff_from_banks``), with no dense frame at all.  Equal
     to binning the same events into frames and running the dense chunk.
@@ -223,18 +229,16 @@ def run_conv_layer_batched_chunk_streamed(
                                        carry, emit, collect_stats)
     with span(f"{lp.name}.queues"):
         frames = stream_frames(stream, (h, w), lp.geometry)  # (B,t,C,H,W)
-        fmaps = frames.transpose(0, 1)                       # (t,B,C,H,W)
         if variant == "banked-cuda":
-            events, counts = _bank_events(fmaps, lp)
+            events, counts = _bank_events(frames.transpose(0, 1), lp)
         elif lp.resolve_stream_finalize() == "sort":
-            events, counts = _queue_events(build_aeq_batched(
-                fmaps, lp.capacity, geometry=lp.geometry), lp)
+            coords, valid, counts = build_launch_queues(
+                frames.permute(0, 1, 3, 4, 2), lp.capacity, lp.event_par,
+                lp.geometry)
+            events = (coords, valid)
         else:
-            queues = stream_queues(stream, lp.capacity, (h, w),
-                                   geometry=lp.geometry)
-            events, counts = _queue_events(BatchedEventQueue(
-                *(None if x is None else x.transpose(0, 1)
-                  for x in queues)), lp)
+            events, counts = _launch_layout(stream_queues(
+                stream, lp.capacity, (h, w), geometry=lp.geometry), lp)
     sparsity = (1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
                 if collect_stats else None)
     return _run_chunk_from_events(
@@ -255,13 +259,16 @@ def _bank_events(fmaps: torch.Tensor, lp: LayerPlan
     return events, banked.count
 
 
-def _queue_events(queues: BatchedEventQueue, lp: LayerPlan
-                  ) -> tuple[BatchedEventQueue, torch.Tensor]:
-    """(t, B, C_in) queues, segment-padded when ``lp.event_par`` > 1, and
-    their demand."""
+def _launch_layout(queues: BatchedEventQueue, lp: LayerPlan
+                   ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """(B, t, C_in) queues, segment-padded when ``lp.event_par`` > 1, in
+    the launch layout of :func:`aeq.build_launch_queues`: ((coords (t,
+    C_in, B, cap, 2), valid (t, C_in, B, cap)), demand (t, B, C_in))."""
     if lp.event_par > 1:
         queues = segment_pad(queues, lp.event_par, lp.geometry)
-    return queues, queues.count
+    return ((queues.coords.permute(1, 2, 0, 3, 4).contiguous(),
+             queues.valid.permute(1, 2, 0, 3).contiguous()),
+            queues.count.transpose(0, 1))
 
 
 def _run_chunk_from_carrier(ho: FusedHandoff, hw: tuple[int, int],
@@ -284,7 +291,7 @@ def _run_chunk_from_carrier(ho: FusedHandoff, hw: tuple[int, int],
 
 
 def _run_chunk_from_events(
-    events: Union[BatchedEventQueue, torch.Tensor],
+    events: Union[tuple[torch.Tensor, torch.Tensor], torch.Tensor],
     counts: torch.Tensor,
     sparsity: Optional[torch.Tensor],
     shape: tuple[int, int, int, int, int],
@@ -299,10 +306,12 @@ def _run_chunk_from_events(
     collect_stats: bool,
 ) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry,
            Optional[LayerStats]]:
-    """Shared chunk body: consume the pre-built (t, B, C_in) event sets —
-    queues for the queue variants, the padded bank masks (t, C_in, B,
-    n_banks, HB+2, WB+2) for the banked ones.  Without ``collect_stats``
-    no LayerStats (the third result is None; ``sparsity`` is then None)."""
+    """Shared chunk body: consume the pre-built event sets — for the queue
+    variants (coords (t, C_in, B, cap, 2), valid (t, C_in, B, cap)), one
+    contiguous (C_in, B, cap) slab per t and conv launch; for the banked
+    ones the padded bank masks (t, C_in, B, n_banks, HB+2, WB+2) — and
+    their (t, B, C_in) demand.  Without ``collect_stats`` no LayerStats
+    (the third result is None; ``sparsity`` is then None)."""
     b_sz, t_steps, h, w, c_in = shape
     single = b_sz == 1  # one queue per launch: the single-queue kernels
     c_out = kernels.shape[-1]
@@ -324,9 +333,7 @@ def _run_chunk_from_events(
                     .reshape(nb, nb, c_in, n_blocks, cb).permute(3, 2, 0, 1, 4)
                     .contiguous())
         else:
-            # one contiguous (C_in, B, cap[, 2]) slab per t and conv launch
-            coords = events.coords.permute(0, 2, 1, 3, 4).contiguous()
-            valid = events.valid.permute(0, 2, 1, 3).contiguous()
+            coords, valid = events
             kb = (kernels.reshape(kh, kw, c_in, n_blocks, cb)
                   .permute(3, 2, 0, 1, 4).to(vm_dtype).contiguous())
             if variant == "interlaced-cuda":

@@ -16,13 +16,17 @@
   (``csrc/threshold_pool.cu``; replaces ``threshold_pool_pallas``): the
   base mode, and the emit mode, which also writes the next layer's
   fused-handoff carrier (``emit_capacity``);
+* ``aeq_build`` — the event-set builder (``csrc/aeq_build.cu``; replaces
+  no Pallas kernel, the JAX package builds its queues in jnp): a spike
+  chunk straight into the queue variants' segment-padded interlaced
+  queues, in the conv unit's launch layout (``aeq.build_launch_queues``);
 * ``runtime`` — the CUDA/CPU switch, the nvcc build and the launch
   counters.
 
 Each wrapper runs its plain version (``ref.py``) for CPU tensors: the CPU
 tests (``tests/test_torch_kernels.py``, ``tests/test_torch_fused.py``,
 ``tests/test_torch_single.py``, ``tests/test_torch_seq_gather.py``,
-``tests/test_torch_interlaced_gather.py``)
+``tests/test_torch_interlaced_gather.py``, ``tests/test_torch_aeq_build.py``)
 hold those against the JAX package, and ``chip_smoke.py`` and
 ``tests/test_torch_gpu.py`` hold the kernels against them on a card.
 """

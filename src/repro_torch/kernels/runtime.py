@@ -35,16 +35,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: change the generated code
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("event_conv", "event_conv_banked", "threshold_pool")
+SOURCES = ("event_conv", "event_conv_banked", "threshold_pool", "aeq_build")
 
 #: launches per kernel since the last :func:`reset_launches`;
 #: ``event_conv_interlaced_tile`` counts the batched interlaced launches
-#: that took the tile path (each also counts as ``event_conv_interlaced``)
+#: that took the tile path (each also counts as ``event_conv_interlaced``);
+#: ``aeq_build`` the event-set builder's, one per queue layer and chunk
 LAUNCHES = {"event_conv_seq": 0, "event_conv_interlaced": 0,
             "event_conv_banked": 0, "threshold_pool": 0,
             "threshold_pool_emit": 0, "event_conv_seq_single": 0,
             "event_conv_interlaced_single": 0,
-            "event_conv_interlaced_tile": 0}
+            "event_conv_interlaced_tile": 0, "aeq_build": 0}
 
 #: dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
@@ -131,12 +132,14 @@ def build_all() -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use; a
+    first use that finds it missing builds every missing library at once
+    (:func:`build_all`), so a forward's first launches wait for the
+    slowest nvcc, not for their sum."""
     lib = _LIBS.get(name)
     if lib is None:
-        job = _start_build(name)
-        if job is not None:
-            _finish_build(name, job)
+        if not _target(name).exists():
+            build_all()
         lib = ctypes.CDLL(str(_target(name)))
         _LIBS[name] = lib
     return lib

@@ -11,6 +11,8 @@ from repro_torch.core import aeq as taeq
 from repro_torch.core.event_conv import tap_matrix
 from repro_torch.core.geometry import ConvGeometry
 from repro_torch.kernels import runtime
+from repro_torch.kernels.aeq_build.kernel import aeq_build_cuda
+from repro_torch.kernels.aeq_build.ref import aeq_build_ref
 from repro_torch.kernels.event_conv.kernel import (
     event_conv_cuda, event_conv_cuda_banked, event_conv_cuda_batched,
     event_conv_cuda_interlaced, event_conv_cuda_interlaced_batched, sm_count,
@@ -271,7 +273,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "threshold_pool_emit": 0,
                                 "event_conv_seq_single": 0,
                                 "event_conv_interlaced_single": 0,
-                                "event_conv_interlaced_tile": 0}
+                                "event_conv_interlaced_tile": 0,
+                                "aeq_build": 0}
     # the banked conv and the emit kernel count only their own launches
     ho = taeq.build_fused_handoff(torch.ones((2, 1, 8, 8, 3), dtype=torch.bool,
                                              device=cuda), 64)
@@ -292,7 +295,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
                                 "threshold_pool_emit": 1,
                                 "event_conv_seq_single": 0,
                                 "event_conv_interlaced_single": 0,
-                                "event_conv_interlaced_tile": 0}
+                                "event_conv_interlaced_tile": 0,
+                                "aeq_build": 0}
     # the single-queue units count only their own launches
     qp = taeq.segment_pad(q, 4)
     event_conv_ref(vm[0], q3.coords[:, 0], q3.valid[:, 0], kern3)
@@ -305,6 +309,99 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     assert (runtime.LAUNCHES["event_conv_seq_single"],
             runtime.LAUNCHES["event_conv_interlaced_single"],
             runtime.LAUNCHES["event_conv_seq"]) == (1, 1, 1)
+    # the event-set builder counts its own launches, not its plain version
+    spikes = torch.ones((2, 1, 8, 8, 3), dtype=torch.bool, device=cuda)
+    aeq_build_ref(spikes, 64, 4)
+    aeq_build_cuda(spikes, 64, 4)
+    assert runtime.LAUNCHES["aeq_build"] == 1
+    assert sum(runtime.LAUNCHES.values()) == 6
+
+
+#: the cells' queue layers (H, W, C_in, input density): the paper net's
+#: 28x28 with 1 and 32 channels and 10x10x32, VGG-16's 32x32x3 to 2x2x512
+BUILDER_SHAPES = [(28, 28, 1, 0.28), (28, 28, 32, 0.16), (10, 10, 32, 0.27),
+                  (32, 32, 3, 0.59), (32, 32, 64, 0.05), (16, 16, 128, 0.06),
+                  (8, 8, 256, 0.03), (4, 4, 512, 0.02), (2, 2, 512, 0.05)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "empty", "full", "view"])
+@pytest.mark.parametrize("truncate", [False, True],
+                         ids=["cap=hw", "cap<demand"])
+@pytest.mark.parametrize("event_par", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", BUILDER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:3])))
+def test_aeq_build_kernel_equals_plain_composition(cuda, shape, event_par,
+                                                   truncate, kind):
+    """The builder kernel equals ``build_aeq_batched`` + ``segment_pad`` +
+    the permutes (its plain version, run on the card) in every element of
+    coords, valid and count; one counted launch."""
+    h, w, c, density = shape
+    g = torch.Generator().manual_seed(h * 7 + c + event_par)
+    b, t = 4, 2
+    if kind == "empty":
+        spikes = torch.zeros((b, t, h, w, c), dtype=torch.bool, device=cuda)
+    elif kind == "full":
+        spikes = torch.ones((b, t, h, w, c), dtype=torch.bool, device=cuda)
+    elif kind == "view":  # (t, C, B, H, W + 2) storage, sliced and permuted
+        base = (torch.rand((t, c, b, h, w + 2), generator=g) < density)
+        spikes = base.to(cuda)[..., 1:w + 1].permute(2, 0, 3, 4, 1)
+    else:
+        spikes = (torch.rand((b, t, h, w, c), generator=g) < density).to(cuda)
+    capacity = max(1, int(density * h * w) // 2) if truncate else h * w
+    runtime.reset_launches()
+    got = aeq_build_cuda(spikes, capacity, event_par)
+    want = aeq_build_ref(spikes, capacity, event_par)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["aeq_build"] == 1
+    for a, b_ in zip(got, want):
+        assert a.shape == b_.shape and a.dtype == b_.dtype
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("net", ["paper", "vgg16"])
+def test_snn_apply_batched_on_card_equals_cpu(cuda, net):
+    """The queue variants' forward (every queue built by the builder
+    kernel) on the card equals the CPU plain path: the paper net under the
+    offline plan and VGG-16's SMOKE under its event_par, spikes and counts
+    exact, logits within the head's float64 summation order."""
+    from repro_torch.configs import csnn_paper, csnn_vgg16
+    from repro_torch.core.csnn import (ConvSpec, encode_input, init_params,
+                                       snn_apply_batched)
+    from repro_torch.core.plan import plan_network
+    if net == "paper":
+        cfg = csnn_paper.FULL
+        plan = plan_network(cfg, capacity=[784, 784, 100],
+                            channel_block=[8, 8, 5], event_par=[8, 8, 4],
+                            batch_tile=8)
+        n_queue_layers = 3
+    else:
+        cfg = csnn_vgg16.SMOKE
+        convs = [s for s in cfg.layers if isinstance(s, ConvSpec)]
+        plan = plan_network(cfg, capacity=[1024] * 2 + [256] * 2 + [64] * 3
+                            + [16] * 3 + [4] * 3,
+                            channel_block=[max(1, s.channels // 4)
+                                           for s in convs],
+                            event_par=csnn_vgg16.PLAN["event_par"])
+        n_queue_layers = 13
+    params = init_params(cfg, seed=5, device="cpu")
+    h, w = cfg.input_hw
+    imgs = torch.rand((8, h, w, cfg.input_channels),
+                      generator=torch.Generator().manual_seed(6))
+    spikes = encode_input(imgs, cfg)
+    runtime.reset_launches()
+    got, gstats = snn_apply_batched(
+        {k: {n: t.to(cuda) for n, t in v.items()} for k, v in params.items()},
+        spikes.to(cuda), cfg, plan)
+    torch.cuda.synchronize()
+    assert runtime.LAUNCHES["aeq_build"] == n_queue_layers
+    want, wstats = snn_apply_batched(params, spikes, cfg, plan)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got.argmax(-1).cpu(), want.argmax(-1))
+    for a, b in zip(gstats, wstats):
+        assert torch.equal(a.in_spike_counts.cpu(), b.in_spike_counts)
+        assert torch.equal(a.out_spike_counts.cpu(), b.out_spike_counts)
 
 
 @pytest.mark.gpu
@@ -573,7 +670,7 @@ def test_measured_tune_on_card_equals_analytic_plan(cuda, tmp_path):
 @pytest.mark.gpu
 def test_kernel_audit_on_card_launches_every_kernel(cuda):
     """``python -m repro_torch.analysis --only kernels`` in process: clean,
-    and each of the seven kernels and the tile path counted a launch."""
+    and each kernel of ``runtime.LAUNCHES`` counted a launch."""
     from repro_torch.analysis.kernel_audit import KERNELS, run_kernel_audit
     runtime.reset_launches()
     rep = run_kernel_audit(device=cuda)

@@ -7,8 +7,8 @@ JAX's.  Per sweep case the port's plain datapaths equal JAX's oracles on
 the same numpy inputs, by value; one case is also held against JAX's
 interpret-mode ``event_conv_pallas``.  The saturation rail is reached and
 clamped by every conv unit, the self-test's wrapping adder is flagged,
-and the red zones catch a write past an operand.  The CUDA pass (the
-seven launch counters) is the ``gpu`` test
+and the red zones catch a write past an operand.  The CUDA pass (every
+launch counter) is the ``gpu`` test
 ``tests/test_torch_gpu.py::test_kernel_audit_on_card_launches_every_kernel``,
 in the file that runs on a card without JAX.
 
@@ -66,8 +66,9 @@ def test_cpu_audit_is_clean():
     for rule in RULES:
         assert rep.checked[rule] >= 1, rule
     # a wrapper's shapes per case: four gathers, the tile path, the banked
-    # conv, the threshold unit base and emit at two pools
-    assert rep.checked["kernel-shape-contract"] == 10 * len(CASES)
+    # conv, the threshold unit base and emit at two pools, the event-set
+    # builder
+    assert rep.checked["kernel-shape-contract"] == 11 * len(CASES)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
