@@ -105,9 +105,8 @@ Phases (any failure exits non-zero before the result line):
    measurement run; a second fresh tune, whose winners are compared; a
    continuous engine pass with ``CSNNEngine(tune="cached")``, its logits
    ``torch.equal`` to ``snn_apply_batched``; and ``ingest=True`` tunes of
-   FULL and SMOKE with 2 polarities (784 and 144 cells), printing both
-   streamed finalizations' times, each tuned streamed forward held
-   against the CPU plain path; then ``snn_apply_sharded`` on FULL, B=8,
+   FULL and SMOKE with 2 polarities (784 and 144 cells), each tuned
+   streamed forward held against the CPU plain path; then ``snn_apply_sharded`` on FULL, B=8,
    under the serve plan and ``"fused-handoff"``: one shard on the card,
    two shards on two streams of it (and two cards where there are two),
    under ``no_sync``, logits ``torch.equal`` and stats equal to the
@@ -1655,14 +1654,14 @@ BATCHED_PATHS = ("serve plan (interlaced)", "event_par=1 (sequential)",
 
 
 def exact_launches(plan, steps, *, batch=B, emit=True, buckets=(),
-                   chunk=None, streamed=False) -> dict:
+                   chunk=None) -> dict:
     """Launches of each kernel in ``steps`` time steps under ``plan``,
     derived from its layers' resolved variants: each conv layer launches
     its conv unit and its threshold unit once per (channel block, time
     step) over all input channels, and a queue layer (sequential or
     interlaced) the event-set builder once per chunk of ``chunk`` steps
-    (``plan.chunk_steps`` by default; ``snn_apply`` runs whole-T), except
-    a ``streamed`` input layer that finalizes by ranks.  A batch of one
+    (``plan.chunk_steps`` by default; ``snn_apply`` runs whole-T),
+    streamed input layers included.  A batch of one
     takes the single-queue kernels of the queue variants.  With ``emit``
     (the batched runners; ``snn_apply`` emits nothing), a layer whose
     consumer resolves to ``"fused-handoff"`` thresholds through the emit
@@ -1681,13 +1680,11 @@ def exact_launches(plan, steps, *, batch=B, emit=True, buckets=(),
     out = {}
     chunks = -(-steps // (chunk or plan.chunk_steps))
     nxt = [lp.resolve_variant() for lp in plan.layers[1:]] + [None]
-    for i, (lp, consumer) in enumerate(zip(plan.layers, nxt)):
+    for lp, consumer in zip(plan.layers, nxt):
         n = steps * lp.c_out // lp.channel_block
         variant = lp.resolve_variant()
         conv = CONV_KERNEL[variant]
-        if variant in ("sequential", "interlaced-cuda") and not (
-                streamed and i == 0
-                and lp.resolve_stream_finalize() == "ranks"):
+        if variant in ("sequential", "interlaced-cuda"):
             out["aeq_build"] = out.get("aeq_build", 0) + chunks
         if batch == 1 and variant in ("sequential", "interlaced-cuda"):
             conv += "_single"
@@ -3515,8 +3512,6 @@ def engine_path(dev, cfg, params, plan, launches):
               "engine, stream fused-handoff": plan_network(
                   scfg, variant=["fused-handoff"] * n_conv, **knobs)}
     for name, splan in splans.items():
-        if splan.layers[0].resolve_stream_finalize() != "ranks":
-            fail(f"{name}: 28x28 input should finalize by ranks")
         swant = snn_apply_batched(sparams, frames, scfg, splan,
                                   collect_stats=False).cpu()
         eng = CSNNEngine(sparams, scfg, splan, CSNNServeConfig(
@@ -3524,7 +3519,7 @@ def engine_path(dev, cfg, params, plan, launches):
         eng.warmup()
         got = counted(name, lambda e=eng: no_sync(
             lambda: serve_all(e, traces)), launches,
-            exact_launches(splan, scfg.t_steps, chunk=1, streamed=True))
+            exact_launches(splan, scfg.t_steps, chunk=1))
         check(f"csnn_paper.FULL 2-polarity {name}", got, swant, eng)
         hold(f"csnn_paper.FULL 2-polarity streamed forward, {name[8:]}",
              forward(sparams, StreamState(banks), scfg, splan),
@@ -3551,15 +3546,14 @@ def print_tune(name, entry, seconds, runs) -> None:
               + ("" if model is None else f", roofline {model} us"))
     w = entry["winners"]
     print(f"  winners: {[(la['variant'], la['event_par'], la['block_e']) for la in w['layers']]}"
-          f", per_layer={w['per_layer']}, t_chunk={w['t_chunk']}, "
-          f"stream_finalize={w['stream_finalize']}")
+          f", per_layer={w['per_layer']}, t_chunk={w['t_chunk']}")
 
 
 def winners_key(entry) -> tuple:
     w = entry["winners"]
     return (tuple((la["variant"], la["event_par"], la["block_e"])
                   for la in w["layers"]),
-            w["per_layer"], w["t_chunk"], w["stream_finalize"])
+            w["per_layer"], w["t_chunk"])
 
 
 def tuned_path(dev, cfg, params, imgs, serve_run, launches, tmp):
@@ -3646,11 +3640,9 @@ def tuned_path(dev, cfg, params, imgs, serve_run, launches, tmp):
 
 
 def tuned_ingest(dev, tmp) -> None:
-    """Phase 4, the tuner's streamed-finalization stage: ``ingest=True``
-    plans of FULL and SMOKE with 2 input channels (784 and 144 cells, on
-    either side of JAX's 256-cell crossover), each stage-3 time
-    ("ranks", "sort") and winner printed; each tuned streamed forward of
-    ``dvs_moving_edges`` traces held against the CPU plain path."""
+    """Phase 4, measured tunes of ``ingest=True`` plans of FULL and SMOKE
+    with 2 input channels (784 and 144 cells); each tuned streamed forward
+    of ``dvs_moving_edges`` traces held against the CPU plain path."""
     from repro_torch.configs import csnn_paper
     from repro_torch.core.aeq import StreamState
     from repro_torch.core.plan import plan_network
@@ -3667,16 +3659,8 @@ def tuned_ingest(dev, tmp) -> None:
                             tune_config=TuneConfig(device=str(dev)),
                             cache_path=path)
         secs, runs = time.perf_counter() - t0, measurement_runs() - n0
-        entry = tune_entry(path)
-        h, w = scfg.input_hw
-        fin = entry["measured_us"]
-        print(f"tune ingest csnn_paper.{cname} 2-polarity ({h}x{w} = "
-              f"{h * w} cells; JAX's default sorts at <= 256): ranks "
-              f"{fin['stream_finalize/ranks']} us, sort "
-              f"{fin['stream_finalize/sort']} us -> "
-              f"{plan.layers[0].stream_finalize!r} (default "
-              f"{plan_network(scfg, **knobs).layers[0].resolve_stream_finalize()!r})")
-        print_tune(f"csnn_paper.{cname} ingest", entry, secs, runs)
+        print_tune(f"csnn_paper.{cname} ingest", tune_entry(path), secs,
+                   runs)
         hold(f"csnn_paper.{cname} 2-polarity tuned streamed forward",
              forward(sparams, StreamState(banks), scfg, plan),
              forward(to_cpu(sparams), StreamState(banks.cpu()), scfg, plan))

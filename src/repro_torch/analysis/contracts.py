@@ -28,8 +28,8 @@ The rules keep JAX's ids and meaning, with the port's variant names
   TPU core's VMEM instead.  The rule bounds the sizing model, not a
   kernel launch: the gather kernels stage no tile.
 * ``plan-validate-agrees`` — ``NetworkPlan.validate(cfg)`` accepts.
-* ``plan-variant-valid`` — pinned variants and ``stream_finalize`` are
-  dispatchable.
+* ``plan-variant-valid`` — pinned variants are dispatchable (JAX's rule
+  also checks its streamed-finalize pin; the port's plan has none).
 * ``plan-fused-handoff-boundary`` — the fused carrier's geometry lines
   up between producer and consumer.
 
@@ -44,9 +44,8 @@ from typing import Callable, Optional
 
 from repro_torch.core.aeq import interlaced_capacity
 from repro_torch.core.csnn import CSNNConfig, ConvSpec, FCSpec
-from repro_torch.core.plan import (KERNEL_VARIANTS, STREAM_FINALIZE,
-                                   LayerPlan, NetworkPlan, pad_capacity,
-                                   plan_network)
+from repro_torch.core.plan import (KERNEL_VARIANTS, LayerPlan, NetworkPlan,
+                                   pad_capacity, plan_network)
 from repro_torch.kernels.event_conv.ops import EVENT_BYTES, SMEM_PER_BLOCK
 
 from .report import Report
@@ -275,10 +274,10 @@ def _check_validate(plan: NetworkPlan, cfg, case: str, rep: Report) -> int:
 
 
 @contract("plan-variant-valid",
-          "pinned kernel variants and stream finalization are dispatchable")
+          "pinned kernel variants are dispatchable")
 def _check_variant(plan: NetworkPlan, cfg, case: str, rep: Report) -> int:
     n = 0
-    for i, lp in enumerate(plan.layers):
+    for lp in plan.layers:
         n += 1
         if lp.variant is not None and lp.variant not in KERNEL_VARIANTS:
             rep.flag("contracts", "plan-variant-valid",
@@ -291,18 +290,6 @@ def _check_variant(plan: NetworkPlan, cfg, case: str, rep: Report) -> int:
                      f"variant='interlaced-cuda' with event_par="
                      f"{lp.event_par}: the interlaced kernel walks "
                      f"event_par-aligned groups and needs a width > 1")
-        if lp.stream_finalize is not None:
-            if lp.stream_finalize not in STREAM_FINALIZE:
-                rep.flag("contracts", "plan-variant-valid",
-                         _layer_where(case, lp),
-                         f"stream_finalize={lp.stream_finalize!r} is not "
-                         f"one of {STREAM_FINALIZE}")
-            if i != 0:
-                rep.flag("contracts", "plan-variant-valid",
-                         _layer_where(case, lp),
-                         "stream_finalize set on a non-input layer: only "
-                         "the ingesting input layer finalizes streamed "
-                         "queues")
     return n
 
 
@@ -411,7 +398,7 @@ def sweep_cases() -> list[tuple[str, CSNNConfig, dict]]:
               variant=[None, "fused-handoff"])),
         ("dvs-ingest-sort-finalize", dvs,
          dict(capacity=128, event_par=None, t_chunk=4, ingest=True,
-              variant="banked-cuda", stream_finalize="sort")),
+              variant="banked-cuda")),
         ("k1-pointwise", k1, dict(capacity=64, event_par=2)),
         ("wide-5x5-autotuned", wide,
          dict(capacity=128, channel_block=2, event_par=None)),

@@ -129,7 +129,7 @@ def _padded_masks(fmaps: torch.Tensor, capacity: int,
                   geometry: ConvGeometry) -> torch.Tensor:
     """The banked conv's carrier of (Q, H, W) fmaps: (1, Q, n_banks,
     HB+2, WB+2) bool, the ``build_bank_masks`` masks with one zero macro
-    cell per side (the scheduler's ``_bank_events``)."""
+    cell per side (as the scheduler's ``_event_sets`` pads them)."""
     from repro_torch.core.aeq import build_bank_masks
 
     m = build_bank_masks(fmaps, capacity, geometry).masks

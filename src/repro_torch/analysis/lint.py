@@ -45,7 +45,7 @@ from .report import Report
 IGNORE_RE = re.compile(r"#\s*analysis:\s*ignore\[([a-zA-Z0-9,\- ]+)\]")
 
 #: (path suffix, qualified name) of the hot roots: the forward's chunk
-#: step and the scheduler's batched runners under it, the sharded
+#: step and the scheduler's batched runner under it, the sharded
 #: forward, the engine's chunk step and batch inference, the LM
 #: decode loop (the decoders' and whisper's decode step, and
 #: ``Engine.generate``), and the LM training loop (its step, the loss
@@ -54,7 +54,6 @@ HOT_ROOTS: frozenset[tuple[str, str]] = frozenset({
     ("core/csnn.py", "snn_step_chunk"),
     ("core/csnn.py", "snn_apply_sharded"),
     ("core/scheduler.py", "run_conv_layer_batched_chunk"),
-    ("core/scheduler.py", "run_conv_layer_batched_chunk_streamed"),
     ("serve/csnn_engine.py", "CSNNEngine._step"),
     ("serve/csnn_engine.py", "CSNNEngine._infer"),
     ("models/transformer.py", "decode_step"),

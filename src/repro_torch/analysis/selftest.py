@@ -102,10 +102,10 @@ def _broken_plans():
                  capacity=lp.in_hw[0] * lp.in_hw[1] + 64)),
         ("variant-interlaced-seq-width", "plan-variant-valid",
          relayer(variant="interlaced-cuda", event_par=1)),
-        ("finalize-on-inner-layer", "plan-variant-valid",
+        ("variant-bogus-on-inner-layer", "plan-variant-valid",
          dataclasses.replace(
              plan, layers=plan.layers[:1] + (dataclasses.replace(
-                 plan.layers[1], stream_finalize="sort"),)
+                 plan.layers[1], variant="fused-marvel"),)
              + plan.layers[2:])),
     ]
 

@@ -27,10 +27,10 @@ Streaming ingestion skips the dense frame: raw DVS address events
 (t, y, x, polarity) are appended into a :class:`StreamState`, whose
 occupancy already sits in the interlace-column banks
 (``append_events`` / ``append_events_batched``: duplicates dedupe,
-out-of-window rows drop, order never matters).  ``stream_queues``
-finalizes the input queues from the banks by cumulative ranks, without a
-sort, equal to ``build_aeq_batched`` over the binned frames, and
-``fused_handoff_from_banks`` builds the fused carrier from them.
+out-of-window rows drop, order never matters).  ``stream_frames`` views
+the banks as the binned frames, which ``build_launch_queues`` compacts as
+it compacts any spike chunk, and ``fused_handoff_from_banks`` builds the
+fused carrier straight from them.
 """
 from __future__ import annotations
 
@@ -625,66 +625,8 @@ def stream_frames(state: StreamState, hw: tuple[int, int],
                   geometry: ConvGeometry = GEOM_3X3) -> torch.Tensor:
     """Dense (..., T, C, H, W) bool view of the ingestion state: the frames
     the binned path builds from the same events."""
+    _check_banks(state.banks, hw, geometry)
     return deinterlace(state.banks, hw, geometry)
-
-
-def _queues_from_cols(il_flat: torch.Tensor, h: int, w: int, capacity: int,
-                      interlaced: bool,
-                      geometry: ConvGeometry = GEOM_3X3
-                      ) -> BatchedEventQueue:
-    """Sort-free queue compaction from column-bank occupancy.
-
-    il_flat: (N, n_banks, HB*WB) bool, cells in raster (I, J) order.  A
-    kept event's queue slot is its rank in the read order, from exclusive
-    cumulative sums: within one column, (I, J) raster order is the (i, j)
-    order, so rank = events of earlier columns + earlier events of its
-    column (raster layout: the rank of the pixel in the dense map).  One
-    scatter places the kept events; ranks at or past min(capacity, H*W)
-    drop, as ``build_aeq_batched`` drops its tail.
-    """
-    kh, kw = geometry.kh, geometry.kw
-    nb = geometry.n_banks
-    n, _, cells = il_flat.shape
-    hb, wb = -(-h // kh), -(-w // kw)
-    dev = il_flat.device
-    seg_full = il_flat.sum(dim=-1, dtype=torch.int32)             # (N, nb)
-    count = seg_full.sum(dim=-1, dtype=torch.int32)               # (N,)
-    kept = torch.clamp(count, max=min(capacity, h * w))
-    il_i = il_flat.to(torch.int32)
-    if interlaced:
-        seg_off_full = torch.cumsum(seg_full, dim=-1,
-                                    dtype=torch.int32) - seg_full
-        rank = (seg_off_full[:, :, None]
-                + torch.cumsum(il_i, dim=-1, dtype=torch.int32) - il_i)
-    else:
-        dense = deinterlace(il_i.reshape(n, nb, hb, wb), (h, w), geometry)
-        flat = dense.reshape(n, h * w)
-        rank_flat = torch.cumsum(flat, dim=-1, dtype=torch.int32) - flat
-        rank = interlace(rank_flat.reshape(n, h, w),
-                         geometry).reshape(n, nb, cells)
-    # cell (s, I, J) -> pixel (i, j); pad cells (i >= h or j >= w) are
-    # never occupied, so ``keep`` masks their coordinates
-    s = torch.arange(nb, dtype=torch.int32, device=dev)[:, None]
-    cell = torch.arange(cells, dtype=torch.int32, device=dev)[None, :]
-    ii = kh * (cell // wb) + s // kw                              # (nb, cells)
-    jj = kw * (cell % wb) + s % kw
-    cell_coords = torch.stack([ii, jj], dim=-1).reshape(nb * cells, 2)
-    keep = il_flat & (rank < kept[:, None, None])
-    pos = torch.where(keep, rank, capacity).reshape(n, nb * cells)
-    coords = torch.full((n, capacity + 1, 2), -1, dtype=torch.int32,
-                        device=dev)                # slot ``capacity``: a dump
-    coords.scatter_(1, pos.to(torch.int64)[..., None].expand(-1, -1, 2),
-                    cell_coords[None].expand(n, -1, -1))
-    coords = coords[:, :capacity].contiguous()
-    valid = (torch.arange(capacity, dtype=torch.int32, device=dev)[None, :]
-             < kept[:, None])
-    seg_off = seg_cnt = None
-    if interlaced:
-        seg_cnt = torch.minimum(
-            torch.clamp(kept[:, None] - seg_off_full, min=0), seg_full)
-        seg_off = torch.cumsum(seg_cnt, dim=-1, dtype=torch.int32) - seg_cnt
-    return BatchedEventQueue(coords=coords, valid=valid, count=count,
-                             seg_offsets=seg_off, seg_counts=seg_cnt)
 
 
 def _check_banks(banks: torch.Tensor, hw: tuple[int, int],
@@ -698,33 +640,6 @@ def _check_banks(banks: torch.Tensor, hw: tuple[int, int],
     if (hb, wb) != (-(-h // kh), -(-w // kw)):
         raise ValueError(f"stream banks {(hb, wb)} do not match hw={hw} "
                          f"under the {kh}x{kw} geometry")
-
-
-def stream_queues(state: StreamState, capacity: int, hw: tuple[int, int], *,
-                  interlaced: bool = True,
-                  geometry: ConvGeometry = GEOM_3X3) -> BatchedEventQueue:
-    """Finalize ingested events into queues without a sort.
-
-    Returns a :class:`BatchedEventQueue` with leading dims (..., T, C)
-    equal to ``build_aeq_batched(stream_frames(state, hw), capacity)``
-    (coords, valid, count, segments, truncation included), built from the
-    column banks by :func:`_queues_from_cols`.
-    """
-    h, w = hw
-    nb = geometry.n_banks
-    _check_banks(state.banks, hw, geometry)
-    *lead, _, hb, wb = state.banks.shape
-    n = math.prod(lead)
-    q = _queues_from_cols(state.banks.reshape(n, nb, hb * wb), h, w,
-                          capacity, interlaced, geometry)
-    return BatchedEventQueue(
-        coords=q.coords.reshape(*lead, capacity, 2),
-        valid=q.valid.reshape(*lead, capacity),
-        count=q.count.reshape(tuple(lead)),
-        seg_offsets=None if q.seg_offsets is None
-        else q.seg_offsets.reshape(*lead, nb),
-        seg_counts=None if q.seg_counts is None
-        else q.seg_counts.reshape(*lead, nb))
 
 
 def fused_handoff_from_banks(banks: torch.Tensor, capacity: int,

@@ -38,7 +38,6 @@ from .aeq import StreamState
 from .plan import NetworkPlan, plan_network
 from .scheduler import (LayerStats, fc_readout, init_conv_carry,
                         run_conv_layer_batched_chunk,
-                        run_conv_layer_batched_chunk_streamed,
                         run_conv_layer_dense, run_conv_layer_planned,
                         run_fc_head)
 
@@ -243,9 +242,8 @@ def snn_step_chunk(params: dict, state: CSNNState,
     spikes_chunk: (B, t_chunk, H, W, C_in) bool, or a
     :class:`~repro_torch.core.aeq.StreamState` with banks (B, t_chunk,
     C_in, n_banks, HB, WB) of ingested DVS events, which the first conv
-    layer consumes through
-    ``scheduler.run_conv_layer_batched_chunk_streamed`` (equal to binning
-    the events into frames).  Each conv layer consumes the chunk from its
+    layer consumes (equal to binning the events into frames).  Every conv
+    layer runs ``scheduler.run_conv_layer_batched_chunk``.  Each conv layer consumes the chunk from its
     carry; the head drive accumulates the last conv layer's spikes.
     Returns the new state, or (state, [LayerStats, ...]) with
     ``collect_stats`` (without it no layer computes its statistics).
@@ -272,13 +270,10 @@ def snn_step_chunk(params: dict, state: CSNNState,
             nxt = plan.layers[ci + 1] if ci + 1 < n_conv else None
             emit = ((nxt.capacity, nxt.geometry) if nxt is not None
                     and nxt.resolve_variant() == "fused-handoff" else None)
-            run = (run_conv_layer_batched_chunk_streamed
-                   if isinstance(x, StreamState)  # layer 0 only
-                   else run_conv_layer_batched_chunk)
             with span(f"conv{ci}"):
-                x, carry, st = run(x, p["w"], p["b"], cfg.v_t,
-                                   plan.layers[ci], state.convs[ci],
-                                   emit=emit, collect_stats=collect_stats)
+                x, carry, st = run_conv_layer_batched_chunk(
+                    x, p["w"], p["b"], cfg.v_t, plan.layers[ci],
+                    state.convs[ci], emit=emit, collect_stats=collect_stats)
             new_convs.append(carry)
             stats.append(st)
             ci += 1

@@ -17,9 +17,11 @@ same budget and one resident tile, the port's plan equals JAX's field by
 field (tests/test_torch_plan.py).
 
 ``plan_network(ingest=True)`` sizes the streaming ingestion buffers of
-the input layer (``ingest_capacity``, ``ingest_depth``) and
-``stream_finalize`` picks how streamed input queues are finalized:
-JAX's fields and rules, unchanged.
+the input layer (``ingest_capacity``, ``ingest_depth``): JAX's fields and
+rules, unchanged.  JAX's plan also picks how streamed input queues are
+finalized; the port has one route for them, the builder over the banks
+viewed as frames (``scheduler._event_sets``), so its plan has no such
+field.
 
 ``plan_network(tune="measured"|"cached")`` hands the same knobs to the
 measured tuner (``repro_torch.tune``), which times the candidate
@@ -55,19 +57,6 @@ _VM_DTYPES = {None: torch.float32, 8: torch.int8, 16: torch.int16}
 # tensors, so the device picks kernel or plain path, not the plan.
 KERNEL_VARIANTS = ("sequential", "banked-cuda", "interlaced-cuda",
                    "fused-handoff")
-
-# Streamed-queue finalizations (input layer only): "ranks" is the
-# sort-free exclusive-cumulative-rank path (``aeq.stream_queues``);
-# "sort" scatters the banks to dense frames and re-compacts them with
-# ``build_aeq_batched``.  Both give the same queues; None resolves by fmap
-# size (``LayerPlan.resolve_stream_finalize``).
-STREAM_FINALIZE = ("ranks", "sort")
-
-# The fmap-size crossover of that default: at or below this many cells
-# the sort finalizes.  JAX's value, kept so the two plans agree field by
-# field; it was measured on another device.  The measured tuner ranks
-# both finalizations on the device instead (``tune=``).
-_FINALIZE_SORT_MAX_HW = 256
 
 TUNE_MODES = ("analytic", "measured", "cached")
 
@@ -114,8 +103,6 @@ class LayerPlan:
                                   # stream admission (input layer only)
     ingest_depth: Optional[int] = None     # time bins per admission window
     variant: Optional[str] = None  # pinned kernel variant (KERNEL_VARIANTS)
-    stream_finalize: Optional[str] = None  # "ranks"/"sort" (input layer
-                                  # only; None = by fmap size)
     geometry: ConvGeometry = GEOM_3X3
 
     def resolve_variant(self) -> str:
@@ -127,16 +114,6 @@ class LayerPlan:
         if self.variant is not None:
             return self.variant
         return "interlaced-cuda" if self.event_par > 1 else "sequential"
-
-    def resolve_stream_finalize(self) -> str:
-        """Effective streamed-queue finalization of this (input) layer: a
-        pinned :attr:`stream_finalize` wins; otherwise fmaps of at most
-        ``_FINALIZE_SORT_MAX_HW`` cells sort and larger ones rank.  Both
-        give the same queues, so the choice is speed only."""
-        if self.stream_finalize is not None:
-            return self.stream_finalize
-        h, w = self.in_hw
-        return "sort" if h * w <= _FINALIZE_SORT_MAX_HW else "ranks"
 
     @property
     def vm_dtype(self) -> torch.dtype:
@@ -161,15 +138,13 @@ class LayerPlan:
         ing = (f", ingest={self.ingest_capacity}x{self.ingest_depth}"
                if self.ingest_capacity is not None else "")
         var = f", variant={self.variant}" if self.variant is not None else ""
-        fin = (f", finalize={self.stream_finalize}"
-               if self.stream_finalize is not None else "")
         geo = ("" if self.geometry == GEOM_3X3
                else f", k={self.geometry.describe()}")
         dt = str(self.vm_dtype).replace("torch.", "")
         return (f"LayerPlan({self.name}: {h}x{w}x{self.c_in}{geo} -> "
                 f"{oh}x{ow}x{self.c_out}{pool}, cap={self.capacity}, "
                 f"cb={self.channel_block}, block_e={self.block_e}, "
-                f"vm={self.vm_tile}, {dt}{par}{var}{fin}{ing})")
+                f"vm={self.vm_tile}, {dt}{par}{var}{ing})")
 
 
 @dataclass(frozen=True)
@@ -281,7 +256,6 @@ def plan_conv_layer(
     ingest_capacity: Optional[int] = None,
     ingest_depth: Optional[int] = None,
     variant: Optional[str] = None,
-    stream_finalize: Optional[str] = None,
     geometry: ConvGeometry = GEOM_3X3,
 ) -> LayerPlan:
     """Derive one conv layer's plan from its geometry.  ``event_par=None``
@@ -328,16 +302,13 @@ def plan_conv_layer(
             f"variant='interlaced-cuda' requires event_par > 1 (got {ep}): "
             f"the interlaced kernel walks event_par-aligned groups of the "
             f"segment-padded queue")
-    if stream_finalize is not None and stream_finalize not in STREAM_FINALIZE:
-        raise ValueError(f"stream_finalize={stream_finalize!r} must be one "
-                         f"of {STREAM_FINALIZE} (or None = by fmap size)")
     return LayerPlan(index=index, name=name, in_hw=in_hw, out_hw=out_hw,
                      c_in=c_in, c_out=c_out, pool=pool, capacity=cap,
                      channel_block=cb, block_e=be, vm_tile=vm_tile,
                      sat_bits=sat_bits, event_par=ep,
                      ingest_capacity=ingest_capacity,
                      ingest_depth=ingest_depth, variant=variant,
-                     stream_finalize=stream_finalize, geometry=geometry)
+                     geometry=geometry)
 
 
 def plan_network(
@@ -358,7 +329,6 @@ def plan_network(
     ingest: bool = False,
     ingest_capacity: Optional[int] = None,
     variant: Optional[str] | Sequence[Optional[str]] = None,
-    stream_finalize: Optional[str] = None,
     fc_capacity: Optional[int] = None,
     tune: str = "analytic",
     tune_config=None,
@@ -377,13 +347,11 @@ def plan_network(
     streaming ingestion: ``ingest_depth`` is the admission window in time
     bins (the chunk length) and ``ingest_capacity`` the raw-event buffer
     per admission, by default one input-queue depth of events per (bin,
-    channel), padded to a multiple of 64.  ``stream_finalize`` pins the
-    input layer's streamed-queue finalization.
+    channel), padded to a multiple of 64.
 
     ``tune`` selects how the schedule knobs are derived: ``"analytic"``
     (the sizing model above); ``"measured"`` times candidate (block_e,
-    event_par, variant, capacity sharing, t_chunk, stream_finalize)
-    settings on ``tune_config.device`` (a ``repro_torch.tune.TuneConfig``;
+    event_par, variant, capacity sharing, t_chunk) settings on ``tune_config.device`` (a ``repro_torch.tune.TuneConfig``;
     CUDA by default) and plans with the winners, persisting them in the
     plan cache; ``"cached"`` loads winners from the cache (``cache_path``,
     else ``REPRO_TORCH_PLAN_CACHE``, else the per-user default) and
@@ -400,7 +368,6 @@ def plan_network(
                     smem_budget=smem_budget, t_chunk=t_chunk,
                     event_par=event_par, ingest=ingest,
                     ingest_capacity=ingest_capacity, variant=variant,
-                    stream_finalize=stream_finalize,
                     fc_capacity=fc_capacity)
         return tune_network(cfg, mode=tune, base=base, config=tune_config,
                             cache_path=cache_path)
@@ -445,7 +412,6 @@ def plan_network(
             sat_bits=sat_bits, per_layer=per_layer, smem_budget=smem_budget,
             event_par=eps[ci], ingest_capacity=ing_cap,
             ingest_depth=ing_depth, variant=variants[ci],
-            stream_finalize=stream_finalize if ci == 0 else None,
             geometry=ConvGeometry(spec.kernel, spec.kernel)))
         hw, c_in = conv_out_hw(hw, spec), spec.channels
     return NetworkPlan(layers=tuple(plans), t_steps=cfg.t_steps,

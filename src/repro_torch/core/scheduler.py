@@ -1,8 +1,10 @@
 """Channel-multiplexed layer scheduling (paper Sec. V-D, Algorithm 1;
 port of ``repro.core.scheduler``).
 
-Per conv layer and time chunk: ONE batched compaction builds every
-(t, b, c_in) event set; then, for each output-channel block and each time
+Per conv layer and time chunk: ONE batched compaction (``_event_sets``)
+builds every (t, b, c_in) event set from the layer's input, whatever its
+form — dense frames, a fused-handoff carrier or a :class:`aeq.StreamState`
+of ingested DVS events; then, for each output-channel block and each time
 step, the conv unit applies the events of every input channel to the
 block's B membrane tiles, and one threshold-unit launch per (block, t)
 adds the bias, fires against the m-TTFS latch and OR-pools (the JAX
@@ -25,7 +27,10 @@ Variants (``LayerPlan.resolve_variant``):
 
 The two queue variants build every (t, b, c_in) queue of the chunk with
 one ``aeq.build_launch_queues`` (on the card one launch of the builder
-kernel, ``kernels/aeq_build``), already in the launch layout.
+kernel, ``kernels/aeq_build``), already in the launch layout.  Streamed
+input takes the same route over its banks viewed as frames
+(``aeq.stream_frames``); the fused variant takes its carrier straight
+from the banks (``aeq.fused_handoff_from_banks``).
 
 Fused spike emission.  The JAX package builds the carrier at the layer
 boundary with ``aeq.build_fused_handoff`` of the producer's dense
@@ -37,10 +42,6 @@ threshold launch is ``threshold_pool_cuda_emit`` writing its slab of the
 carrier, and the runner returns the carrier in place of the dense
 spikes.  At the network edge the fused layer builds its carrier from the
 dense input with ``aeq.build_fused_handoff``.
-
-Streamed input.  ``run_conv_layer_batched_chunk_streamed`` runs the same
-chunk body over a :class:`aeq.StreamState` of ingested DVS events: only
-the event sets are built from the banks instead of dense frames.
 
 One sample.  A batch of one (``run_conv_layer_planned`` runs the same
 body on one) launches the single-queue kernels for its queue variants
@@ -55,8 +56,7 @@ one-layer plan on the fly.
 
 Spans.  Inside the layer's ``csnn.conv<i>`` (``csnn.snn_step_chunk``),
 a batched chunk marks the build of its event sets and their layout for
-the launches (``aeq.build_launch_queues``, the bank masks or the carrier
-at the network edge, then the per-block slabs) as
+the launches (``_event_sets``, then the per-block slabs) as
 ``csnn.conv<i>.queues`` (two ranges a chunk: the build, then the
 layout), and the per-(block, t) launch loop as ``csnn.conv<i>.launches``
 (args ``n_blocks``, ``t_steps``); ``conv<i>`` is the layer's parameter
@@ -80,10 +80,9 @@ from repro_torch.kernels.threshold_pool.kernel import (
     threshold_pool_cuda_batched, threshold_pool_cuda_emit)
 from repro_torch.runtime.spans import span
 
-from .aeq import (BatchedEventQueue, FusedHandoff, StreamState,
-                  build_bank_masks, build_fused_handoff, build_launch_queues,
-                  check_handoff, fused_handoff_from_banks, handoff_shape,
-                  segment_pad, stream_frames, stream_queues)
+from .aeq import (FusedHandoff, StreamState, build_bank_masks,
+                  build_fused_handoff, build_launch_queues, check_handoff,
+                  fused_handoff_from_banks, handoff_shape, stream_frames)
 from .event_conv import conv2d_same, tap_matrix
 from .geometry import ConvGeometry
 from .plan import LayerPlan, plan_conv_layer
@@ -96,7 +95,7 @@ BANKED = ("banked-cuda", "fused-handoff")
 
 class LayerStats(NamedTuple):
     """Per-layer observability (Table III, capacity calibration).  The
-    batched runners give the shapes below; ``run_conv_layer_planned``
+    batched runner gives the shapes below; ``run_conv_layer_planned``
     (one sample) drops the leading B."""
 
     in_spike_counts: torch.Tensor   # (B, T, C_in) events fed to the conv unit
@@ -138,7 +137,7 @@ def _merge_blocks(arr: torch.Tensor) -> torch.Tensor:
 
 
 def run_conv_layer_batched_chunk(
-    spikes_in: Union[torch.Tensor, FusedHandoff],
+    spikes_in: Union[torch.Tensor, FusedHandoff, StreamState],
     kernels: torch.Tensor,
     bias: torch.Tensor,
     v_t,
@@ -151,143 +150,81 @@ def run_conv_layer_batched_chunk(
            Optional[LayerStats]]:
     """Step one conv layer through a chunk of time steps from ``carry``.
 
-    spikes_in: (B, t_chunk, H, W, C_in) bool dense frames, or the
+    spikes_in: (B, t_chunk, H, W, C_in) bool dense frames, the
     :class:`FusedHandoff` carrier a producer emitted for this layer (only
-    when it is pinned to ``"fused-handoff"``).  ``emit``: the next layer's
-    (capacity, geometry) when that layer is pinned to ``"fused-handoff"``.
-    Returns (spikes_out (B, t_chunk, H', W', C_out) bool — or, with
-    ``emit``, the carrier of those spikes — new carry, chunk LayerStats,
-    or None without ``collect_stats``: then no statistic is computed).
-    Chaining chunks equals one whole-T call.
+    when it is pinned to ``"fused-handoff"``), or a :class:`StreamState`
+    of ingested input events with banks (B, t_chunk, C_in, n_banks, HB,
+    WB) (equal to binning the events into frames).  ``emit``: the next
+    layer's (capacity, geometry) when that layer is pinned to
+    ``"fused-handoff"``.  Returns (spikes_out (B, t_chunk, H', W', C_out)
+    bool — or, with ``emit``, the carrier of those spikes — new carry,
+    chunk LayerStats, or None without ``collect_stats``: then no statistic
+    is computed).  Chaining chunks equals one whole-T call.
+    """
+    variant = lp.resolve_variant()
+    with span(f"{lp.name}.queues"):
+        events, counts, sparsity, shape = _event_sets(
+            spikes_in, lp, collect_stats=collect_stats)
+    return _run_chunk_from_events(
+        events, counts, sparsity, shape, kernels, bias, v_t, lp, carry,
+        variant=variant, emit=emit, collect_stats=collect_stats)
+
+
+def _event_sets(x: Union[torch.Tensor, FusedHandoff, StreamState],
+                lp: LayerPlan, *, collect_stats: bool):
+    """The conv unit's event sets of one chunk of a layer's input, in any
+    of its three forms (dense frames, carrier, ingested banks), for the
+    layer's variant: (events, demand (t, B, C_in), input sparsity (B,) or
+    None without ``collect_stats``, chunk shape (B, t, H, W, C_in)).
+
+    ``events`` are, for the queue variants, ``aeq.build_launch_queues``'s
+    (coords, valid) over the dense frames (streamed banks viewed as
+    frames: one builder launch on the card); for ``"banked-cuda"`` the
+    bank masks with one zero macro cell per side (t, C_in, B, n_banks,
+    HB+2, WB+2); for ``"fused-handoff"`` the carrier's masks — the one
+    given, or built from the dense frames at the network edge or from the
+    banks.  The sparsity is the frames' zero share, or for a carrier
+    1 - demand / cells (integer sums below 2**24 in float32: exact).
     """
     variant = lp.resolve_variant()
     h, w = lp.in_hw
-    if isinstance(spikes_in, FusedHandoff) and variant != "fused-handoff":
+    if isinstance(x, FusedHandoff) and variant != "fused-handoff":
         raise ValueError(f"a FusedHandoff carrier feeds only a layer pinned "
                          f"to 'fused-handoff'; {lp.name} resolves to "
                          f"{variant!r}")
     if variant == "fused-handoff":
-        if isinstance(spikes_in, FusedHandoff):
-            check_handoff(spikes_in, lp.c_in, (h, w), lp.geometry)
-            ho = spikes_in
-        else:  # the network edge: dense input frames
-            with span(f"{lp.name}.queues"):
-                ho = build_fused_handoff(spikes_in, lp.capacity, lp.geometry)
-        return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
-                                       carry, emit, collect_stats)
-    b_sz, t_steps, h, w, c_in = spikes_in.shape
-    with span(f"{lp.name}.queues"):
-        if variant == "banked-cuda":
-            events, counts = _bank_events(
-                spikes_in.permute(1, 0, 4, 2, 3), lp)  # (t, B, C_in, H, W)
-        else:
-            coords, valid, counts = build_launch_queues(
-                spikes_in.to(torch.bool), lp.capacity, lp.event_par,
-                lp.geometry)
-            events = (coords, valid)
-    sparsity = (1.0 - spikes_in.to(torch.float32).mean(dim=(1, 2, 3, 4))
-                if collect_stats else None)
-    return _run_chunk_from_events(
-        events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant, emit=emit,
-        collect_stats=collect_stats)
-
-
-def run_conv_layer_batched_chunk_streamed(
-    stream: StreamState,
-    kernels: torch.Tensor,
-    bias: torch.Tensor,
-    v_t,
-    lp: LayerPlan,
-    carry: ConvCarry,
-    *,
-    emit: Emit = None,
-    collect_stats: bool = True,
-) -> tuple[Union[torch.Tensor, FusedHandoff], ConvCarry,
-           Optional[LayerStats]]:
-    """:func:`run_conv_layer_batched_chunk` over ingested input events.
-
-    stream: :class:`StreamState` with banks (B, t_chunk, C_in, n_banks,
-    HB, WB).  Only the event sets are built differently, one route per
-    variant: the queue variants finalize the banks with
-    ``aeq.stream_queues`` and ``segment_pad``, or
-    (``lp.resolve_stream_finalize() == "sort"``) with
-    ``aeq.build_launch_queues`` over the dense bank view, as the binned
-    path; ``"banked-cuda"`` builds its bank masks from the
-    dense bank view; ``"fused-handoff"`` takes its carrier from the banks
-    (``aeq.fused_handoff_from_banks``), with no dense frame at all.  Equal
-    to binning the same events into frames and running the dense chunk.
-    """
-    h, w = lp.in_hw
-    b_sz, t_steps, c_in = stream.banks.shape[:3]
-    variant = lp.resolve_variant()
-    if variant == "fused-handoff":
-        with span(f"{lp.name}.queues"):
-            ho = fused_handoff_from_banks(stream.banks, lp.capacity, (h, w),
+        if isinstance(x, FusedHandoff):
+            check_handoff(x, lp.c_in, (h, w), lp.geometry)
+            ho = x
+        elif isinstance(x, StreamState):
+            ho = fused_handoff_from_banks(x.banks, lp.capacity, (h, w),
                                           lp.geometry)
-        return _run_chunk_from_carrier(ho, (h, w), kernels, bias, v_t, lp,
-                                       carry, emit, collect_stats)
-    with span(f"{lp.name}.queues"):
-        frames = stream_frames(stream, (h, w), lp.geometry)  # (B,t,C,H,W)
-        if variant == "banked-cuda":
-            events, counts = _bank_events(frames.transpose(0, 1), lp)
-        elif lp.resolve_stream_finalize() == "sort":
-            coords, valid, counts = build_launch_queues(
-                frames.permute(0, 1, 3, 4, 2), lp.capacity, lp.event_par,
-                lp.geometry)
-            events = (coords, valid)
-        else:
-            events, counts = _launch_layout(stream_queues(
-                stream, lp.capacity, (h, w), geometry=lp.geometry), lp)
-    sparsity = (1.0 - frames.to(torch.float32).mean(dim=(1, 2, 3, 4))
+        else:  # the network edge: dense input frames
+            ho = build_fused_handoff(x, lp.capacity, lp.geometry)
+        t_steps, c_in, b_sz = ho.masks.shape[:3]
+        sparsity = None
+        if collect_stats:
+            total = ho.count.to(torch.float32).sum(dim=(0, 2))
+            sparsity = 1.0 - total / float(t_steps * h * w * c_in)
+        return ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in)
+    if isinstance(x, StreamState):  # the banks' frame view
+        x = stream_frames(x, (h, w), lp.geometry).permute(0, 1, 3, 4, 2)
+    b_sz, t_steps, _, _, c_in = x.shape
+    if variant == "banked-cuda":
+        banked = build_bank_masks(x.permute(1, 0, 4, 2, 3), lp.capacity,
+                                  lp.geometry)  # (t, B, C_in, H, W) maps
+        m = banked.masks.transpose(1, 2)
+        events = m.new_zeros(m.shape[:-2] + (m.shape[-2] + 2,
+                                             m.shape[-1] + 2))
+        events[..., 1:-1, 1:-1] = m
+        counts = banked.count
+    else:
+        coords, valid, counts = build_launch_queues(
+            x.to(torch.bool), lp.capacity, lp.event_par, lp.geometry)
+        events = (coords, valid)
+    sparsity = (1.0 - x.to(torch.float32).mean(dim=(1, 2, 3, 4))
                 if collect_stats else None)
-    return _run_chunk_from_events(
-        events, counts, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant=variant, emit=emit,
-        collect_stats=collect_stats)
-
-
-def _bank_events(fmaps: torch.Tensor, lp: LayerPlan
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(t, B, C_in, H, W) frames -> the banked kernel's padded masks (t,
-    C_in, B, nb, HB+2, WB+2), one zero macro cell per side, and the
-    (t, B, C_in) demand."""
-    banked = build_bank_masks(fmaps, lp.capacity, lp.geometry)
-    m = banked.masks.transpose(1, 2)
-    events = m.new_zeros(m.shape[:-2] + (m.shape[-2] + 2, m.shape[-1] + 2))
-    events[..., 1:-1, 1:-1] = m
-    return events, banked.count
-
-
-def _launch_layout(queues: BatchedEventQueue, lp: LayerPlan
-                   ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """(B, t, C_in) queues, segment-padded when ``lp.event_par`` > 1, in
-    the launch layout of :func:`aeq.build_launch_queues`: ((coords (t,
-    C_in, B, cap, 2), valid (t, C_in, B, cap)), demand (t, B, C_in))."""
-    if lp.event_par > 1:
-        queues = segment_pad(queues, lp.event_par, lp.geometry)
-    return ((queues.coords.permute(1, 2, 0, 3, 4).contiguous(),
-             queues.valid.permute(1, 2, 0, 3).contiguous()),
-            queues.count.transpose(0, 1))
-
-
-def _run_chunk_from_carrier(ho: FusedHandoff, hw: tuple[int, int],
-                            kernels, bias, v_t, lp: LayerPlan,
-                            carry: ConvCarry, emit: Emit,
-                            collect_stats: bool):
-    """The fused-handoff chunk over carrier ``ho``; its demand counts give
-    the dense frames' zero share exactly (integer sums below 2**24 in
-    float32)."""
-    h, w = hw
-    t_steps, c_in, b_sz = ho.masks.shape[:3]
-    sparsity = None
-    if collect_stats:
-        total = ho.count.to(torch.float32).sum(dim=(0, 2))
-        sparsity = 1.0 - total / float(t_steps * h * w * c_in)
-    return _run_chunk_from_events(
-        ho.masks, ho.count, sparsity, (b_sz, t_steps, h, w, c_in),
-        kernels, bias, v_t, lp, carry, variant="fused-handoff", emit=emit,
-        collect_stats=collect_stats)
+    return events, counts, sparsity, (b_sz, t_steps, h, w, c_in)
 
 
 def _run_chunk_from_events(

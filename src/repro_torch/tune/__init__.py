@@ -4,9 +4,9 @@
 The analytic sizing rules model a staged tile that the port's gather
 kernels do not have, so they can pick a slower schedule on the card.
 The tuner instead times candidate (block_e, event_par, kernel variant)
-tuples per layer, then the network knobs (capacity sharing, t_chunk)
-and, for ingesting plans, the streamed finalization, on seeded synthetic
-input at the layer's own occupancy, and plans with the measured winners.
+tuples per layer, then the network knobs (capacity sharing, t_chunk),
+on seeded synthetic input at the layer's own occupancy, and plans with
+the measured winners.
 Winners persist in a versioned JSON cache keyed by the layer geometry
 and planning knobs, the vm dtype, the torch and CUDA versions and the
 device (``REPRO_TORCH_PLAN_CACHE`` overrides the location); a cached

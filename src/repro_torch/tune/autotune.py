@@ -1,7 +1,7 @@
 """Measured plan tuner: the ``plan_network(tune=...)`` engine (port of
 ``repro.tune.autotune``).
 
-A search seeded by the analytic plan, in three stages:
+A search seeded by the analytic plan, in two stages:
 
 1. **Per layer** — each conv layer is timed alone on the input spikes the
    seeded synthetic trace produces at its depth
@@ -12,8 +12,9 @@ A search seeded by the analytic plan, in three stages:
    candidates toggle the knobs that couple layers: shared or per-layer
    capacity sizing and the t_chunk ladder.  A candidate the contract
    auditor rejects is skipped (it could never be loaded back).
-3. **Streamed finalization** (ingesting plans) — "ranks" against "sort"
-   on the streamed layer-0 chunk step.
+
+Streamed input has one route to its queues (``scheduler._event_sets``),
+so an ingesting plan has nothing more to rank.
 
 Every candidate's time is set beside its Hopper roofline
 (``crosscheck.model_microseconds``) and deviations are logged.  Winners
@@ -75,7 +76,6 @@ def plan_from_winners(cfg, base: dict, winners: dict) -> NetworkPlan:
               capacity=winners["capacity"],
               per_layer=winners["per_layer"],
               t_chunk=winners["t_chunk"],
-              stream_finalize=winners.get("stream_finalize"),
               block_e=[la["block_e"] for la in winners["layers"]],
               event_par=[la["event_par"] for la in winners["layers"]],
               variant=[la["variant"] for la in winners["layers"]])
@@ -187,35 +187,13 @@ def _measure_and_pick(cfg, base: dict, config: TuneConfig,
     log.info("tune[network]: winner per_layer=%s t_chunk=%s (%.1f us)",
              best_net["per_layer"], best_net["t_chunk"], best_us)
 
-    # -------- stage 3: streamed-queue finalization (ingest plans) -------
-    stream_finalize = base.get("stream_finalize")
-    if base.get("ingest") or base.get("ingest_capacity") is not None:
-        ranked = []
-        for fin in ("ranks", "sort"):
-            plan_c = plan_network(cfg, **{**base, **winner_kw, **best_net,
-                                          "stream_finalize": fin})
-            lp0 = plan_c.layers[0]
-            tc = plan_c.chunk_steps
-            frames = x0[:, :tc].permute(0, 1, 4, 2, 3)  # (B, t, C, H, W)
-            p = params[conv_keys[0]]
-            us = measure.measure_streamed(lp0, frames, p["w"], p["b"],
-                                          cfg.v_t, **timing)
-            measured[f"stream_finalize/{fin}"] = us
-            ranked.append((us, fin))
-        ranked.sort()
-        stream_finalize = ranked[0][1]
-        log.info("tune[stream]: finalize winner %r (%.1f us)",
-                 stream_finalize, ranked[0][0])
-
-    final = plan_network(cfg, **{**base, **winner_kw, **best_net,
-                                 "stream_finalize": stream_finalize})
+    final = plan_network(cfg, **{**base, **winner_kw, **best_net})
     winners = {
         "capacity": (list(base["capacity"])
                      if isinstance(base["capacity"], (list, tuple))
                      else base["capacity"]),
         "per_layer": best_net["per_layer"],
         "t_chunk": best_net["t_chunk"],
-        "stream_finalize": stream_finalize,
         "layers": [{"block_e": lp.block_e, "event_par": lp.event_par,
                     "variant": lp.variant} for lp in final.layers],
         "resolved": [{"capacity": lp.capacity, "block_e": lp.block_e,

@@ -9,7 +9,7 @@ which schedule wins.  Location: the ``cache_path`` argument, else the
 ``~/.cache/repro_torch/plan_cache.json`` — never the JAX package's file.
 
 Entries store the winning knobs (block_e / event_par / variant per layer,
-per_layer capacity sharing, t_chunk, stream_finalize), never a pickled
+per_layer capacity sharing, t_chunk), never a pickled
 plan.  On load the plan is rebuilt through ``plan_network`` and must
 reproduce the recorded resolved values (fixed-point check), pass
 ``NetworkPlan.validate`` and pass ``repro_torch.analysis.audit_plan``
@@ -30,7 +30,7 @@ import torch
 
 # Bump whenever the winners schema or the knob-resolution rules change in
 # a way that invalidates old entries wholesale.
-CACHE_VERSION = 1
+CACHE_VERSION = 2
 
 ENV_VAR = "REPRO_TORCH_PLAN_CACHE"
 _DEFAULT = "~/.cache/repro_torch/plan_cache.json"

@@ -21,11 +21,9 @@ import time
 
 import torch
 
-from repro_torch.core.aeq import StreamState, interlace
 from repro_torch.core.csnn import ConvSpec, init_params, snn_apply_batched
 from repro_torch.core.scheduler import (init_conv_carry,
-                                        run_conv_layer_batched_chunk,
-                                        run_conv_layer_batched_chunk_streamed)
+                                        run_conv_layer_batched_chunk)
 
 _MEASUREMENT_RUNS = 0
 
@@ -111,22 +109,6 @@ def measure_layer(lp, spikes_in: torch.Tensor, w: torch.Tensor,
     def run():
         run_conv_layer_batched_chunk(spikes_in, w, b, v_t, lp,
                                      init_conv_carry(lp, batch, device=device))
-
-    return time_call(run, device=device, warmup=warmup, iters=iters)
-
-
-def measure_streamed(lp, frames: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor, v_t, *, device, warmup: int = 1,
-                     iters: int = 3) -> float:
-    """Median microseconds of the streamed layer-0 chunk step over an
-    ingestion state holding ``frames`` (B, t, C, H, W): the unit that
-    ranks the ``stream_finalize`` candidates."""
-    stream = StreamState(banks=interlace(frames, lp.geometry))
-    batch = frames.shape[0]
-
-    def run():
-        run_conv_layer_batched_chunk_streamed(
-            stream, w, b, v_t, lp, init_conv_carry(lp, batch, device=device))
 
     return time_call(run, device=device, warmup=warmup, iters=iters)
 

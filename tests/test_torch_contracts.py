@@ -42,7 +42,10 @@ def _port_cfg(jcfg):
 
 
 def _port_kwargs(kwargs):
+    """JAX's plan kwargs under the port's variant names; JAX's
+    ``stream_finalize`` pin drops (the port has one streamed route)."""
     out = dict(kwargs)
+    out.pop("stream_finalize", None)
     v = out.get("variant")
     if isinstance(v, (list, tuple)):
         out["variant"] = [JAX_VARIANT_NAMES.get(x, x) for x in v]
@@ -103,10 +106,9 @@ def _seeded(mod_plan, cfg, which, variant_name):
     elif which == "interlaced-ep1":
         p = mod_plan.plan_network(cfg, capacity=64, channel_block=4)
         bad = dataclasses.replace(p.layers[0], variant=variant_name)
-    else:  # stream_finalize on layer 1
-        p = mod_plan.plan_network(cfg, capacity=64, channel_block=4,
-                                  ingest=True)
-        bad = dataclasses.replace(p.layers[1], stream_finalize="sort")
+    else:  # a variant no kernel implements, pinned on layer 1
+        p = mod_plan.plan_network(cfg, capacity=64, channel_block=4)
+        bad = dataclasses.replace(p.layers[1], variant="fused-marvel")
         return dataclasses.replace(p, layers=(p.layers[0], bad))
     return dataclasses.replace(p, layers=(bad,) + p.layers[1:])
 
@@ -115,7 +117,7 @@ def _seeded(mod_plan, cfg, which, variant_name):
     ("block-e", "plan-block-e-divides-depth"),
     ("vm-tile", "plan-vm-tile-geometry"),
     ("interlaced-ep1", "plan-variant-valid"),
-    ("stream-finalize-layer1", "plan-variant-valid"),
+    ("variant-bogus-layer1", "plan-variant-valid"),
 ])
 def test_seeded_violations_flagged_as_jax_flags_them(which, rule):
     from repro.configs import csnn_paper as jpaper

@@ -620,10 +620,9 @@ def test_engine_modes_equal_snn_apply_batched_on_card(cuda):
     traces, _ = dvs_moving_edges(5, scfg.t_steps, scfg.input_hw, seed=1)
     frames = torch.from_numpy(np.stack([events_to_frames(
         tr, scfg.t_steps, scfg.input_hw) for tr in traces]))
-    for finalize in ("ranks", "sort"):
+    for event_par in (None, 1):  # interlaced, then sequential queues
         splan = plan_network(scfg, capacity=64, channel_block=4,
-                             event_par=None, ingest=True,
-                             stream_finalize=finalize)
+                             event_par=event_par, ingest=True)
         want = snn_apply_batched(sparams, frames.to(cuda), scfg, splan,
                                  collect_stats=False).cpu()
         engine = CSNNEngine(sparams, scfg, splan, CSNNServeConfig(

@@ -164,11 +164,9 @@ def test_queue_and_launch_spans_inside_each_layer(net, variant, event_par):
         inner = [(n, a) for n, s, e, a in events
                  if n.startswith(name + ".") and l0 <= s and e <= l1]
         kinds = [n[len(name) + 1:] for n, _ in inner]
-        # the edge layer builds its carrier, then lays the slabs out; a
-        # consumer of an emitted carrier only lays them out
-        assert kinds in (["queues", "queues", "launches"],
-                         ["queues", "launches"]), kinds
-        assert name != "csnn.conv0" or len(kinds) == 3
+        # every layer builds (or, given an emitted carrier, checks) its
+        # event sets, then lays the slabs out
+        assert kinds == ["queues", "queues", "launches"], kinds
         lp = plan.layers[int(name[len("csnn.conv"):])]
         assert inner[-1][1] == {"n_blocks": lp.c_out // lp.channel_block,
                                 "t_steps": plan.chunk_steps}

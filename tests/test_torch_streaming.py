@@ -1,9 +1,11 @@
 """Streaming DVS ingestion of the port against the JAX package.
 
 The same numpy events go through both packages: the synthetic traces,
-the appends into the interlace banks, the sort-free queue finalization,
-the fused carrier built from the banks, the chunk iterator, and the
-streamed chunk step of the network.  Everything is exact except logits
+the appends into the interlace banks, the queues finalized from the banks
+(JAX's sort-free ``stream_queues`` against the port's one route, the
+builder over the banks viewed as frames), the fused carrier built from
+the banks, the chunk iterator, and the streamed chunk step of the
+network.  Everything is exact except logits
 against JAX (``LOGIT_TOL``: the FC product sums in another order); the
 port's streamed step also equals its own binned step exactly, logits
 included, and so does the streaming engine.  On the CPU the port's kernel
@@ -145,8 +147,10 @@ def test_append_and_chunk_errors():
         taeq.make_stream_chunk(np.zeros((4, 4), np.int32), buffer=3,
                                device="cpu")
     with pytest.raises(ValueError, match="columns"):
-        taeq.stream_queues(taeq.init_stream_state((7, 9), 2, 2, device="cpu"),
-                           16, (7, 9), geometry=TGeom(5, 5))
+        taeq.fused_handoff_from_banks(
+            taeq.init_stream_state((7, 9), 2, 2, lead=(1,),
+                                   device="cpu").banks,
+            16, (7, 9), geometry=TGeom(5, 5))
 
 
 def test_iter_stream_chunks_equal_jax_and_backpressure():
@@ -172,6 +176,8 @@ def test_iter_stream_chunks_equal_jax_and_backpressure():
 _jax_stream_queues = jax.jit(jaeq.stream_queues,
                              static_argnames=("capacity", "hw", "interlaced",
                                               "geometry"))
+_jax_segment_pad = jax.jit(jaeq.segment_pad,
+                           static_argnames=("event_par", "geometry"))
 _jax_carrier = jax.jit(jaeq.fused_handoff_from_banks,
                        static_argnames=("capacity", "hw", "geometry"))
 
@@ -193,18 +199,17 @@ def test_stream_queues_and_carrier_equal_jax_and_binned(k, hw, t_bins, c, n,
     state = _ingest_port(ev, t_bins, hw, c, tg, 3, rng)
     jstate = jaeq.StreamState(banks=jnp.asarray(state.banks.numpy()))
     frames = taeq.stream_frames(state, hw, tg)          # (T, C, H, W)
-    for interlaced in (True, False):
-        got = taeq.stream_queues(state, cap, hw, interlaced=interlaced,
-                                 geometry=tg)
-        want = _jax_stream_queues(jstate, capacity=cap, hw=hw,
-                                  interlaced=interlaced, geometry=jg)
-        binned = taeq.build_aeq_batched(frames, cap, interlaced=interlaced,
-                                        geometry=tg)
-        for name, a, b, c_ in zip(got._fields, got, want, binned):
-            assert (a is None) == (b is None) == (c_ is None), name
-            if a is not None:
-                _eq(b, a)
-                assert torch.equal(a, c_), name
+    want = _jax_stream_queues(jstate, capacity=cap, hw=hw, geometry=jg)
+    for event_par in (1, 4):
+        # JAX's queues of the banks, segment-padded, in the launch layout
+        # (T, C, B=1, ...) of the port's builder over the same banks
+        padded = (want if event_par == 1 else
+                  _jax_segment_pad(want, event_par=event_par, geometry=jg))
+        coords, valid, count = taeq.build_launch_queues(
+            frames.permute(0, 2, 3, 1)[None], cap, event_par, tg)
+        _eq(np.asarray(padded.coords)[:, :, None], coords)
+        _eq(np.asarray(padded.valid)[:, :, None], valid)
+        _eq(np.asarray(padded.count)[:, None], count)
     # the fused carrier from the banks of a batch of two windows
     other = _ingest_port(_random_events(rng, t_bins, hw, c, n // 2), t_bins,
                          hw, c, tg, 1, rng)
@@ -291,22 +296,20 @@ def _jax_streamed(k, sat_bits):
         jax.tree.map(jnp.asarray, _params(k, sat_bits)), jnp.asarray(banks)))
 
 
-@pytest.mark.parametrize("k,event_par,sat_bits,variant,finalize", [
-    (3, 1, None, None, "ranks"),
-    (3, 1, None, None, "sort"),
-    (3, 4, None, None, "ranks"),
-    (3, None, 16, None, "ranks"),
-    (5, 1, None, None, None),
-    (3, 1, None, "banked-cuda", None),
-    (3, 1, None, "fused-handoff", None),
-], ids=["seq-ranks", "seq-sort", "interlaced-ranks", "auto-i16", "k5-seq",
-        "banked", "fused"])
-def test_streamed_step_equals_binned_and_jax(k, event_par, sat_bits, variant,
-                                             finalize):
+@pytest.mark.parametrize("k,event_par,sat_bits,variant", [
+    (3, 1, None, None),
+    (5, 4, None, None),
+    (3, 4, None, None),
+    (3, None, 16, None),
+    (5, 1, None, None),
+    (3, 1, None, "banked-cuda"),
+    (3, 1, None, "fused-handoff"),
+], ids=["seq-ranks", "k5-interlaced", "interlaced-ranks", "auto-i16",
+        "k5-seq", "banked", "fused"])
+def test_streamed_step_equals_binned_and_jax(k, event_par, sat_bits, variant):
     _, tcfg = _cfgs(k)
     _, banks, frames = _traces(tcfg, 3)
-    kw = dict(KNOBS, t_chunk=2, event_par=event_par, sat_bits=sat_bits,
-              stream_finalize=finalize)
+    kw = dict(KNOBS, t_chunk=2, event_par=event_par, sat_bits=sat_bits)
     tp = tplan(tcfg, variant=variant, **kw)
     params = params_from_numpy(_params(k, sat_bits), "cpu")
     tb, tf = torch.from_numpy(banks), torch.from_numpy(frames)
@@ -336,6 +339,8 @@ def test_streamed_step_equals_binned_and_jax(k, event_par, sat_bits, variant,
 
 
 def test_ingest_plan_fields_and_finalize_resolution():
+    """The ingestion sizing; the port's plan has no streamed-finalize
+    field or option (one streamed route)."""
     _, tcfg = _cfgs(3)
     plan = tplan(tcfg, capacity=64, ingest=True)
     lp0, lp1 = plan.layers
@@ -344,16 +349,9 @@ def test_ingest_plan_fields_and_finalize_resolution():
     assert "ingest=" in repr(lp0) and "ingest=" not in repr(lp1)
     assert tplan(tcfg, ingest=True, t_chunk=2).layers[0].ingest_depth == 2
     assert tplan(tcfg, ingest_capacity=512).layers[0].ingest_capacity == 512
-    # 12x12 = 144 cells sort by default, 28x28 ranks; a pin wins
-    assert lp0.resolve_stream_finalize() == "sort"
-    from repro_torch.configs import csnn_paper
-    full = tplan(csnn_paper.FULL).layers[0]
-    assert full.resolve_stream_finalize() == "ranks"
-    pinned = tplan(tcfg, stream_finalize="ranks").layers[0]
-    assert pinned.resolve_stream_finalize() == "ranks"
-    assert "finalize=ranks" in repr(pinned)
-    with pytest.raises(ValueError, match="stream_finalize"):
-        tplan(tcfg, stream_finalize="bogus")
+    assert not hasattr(lp0, "stream_finalize") and "finalize" not in repr(lp0)
+    with pytest.raises(TypeError, match="stream_finalize"):
+        tplan(tcfg, ingest=True, stream_finalize="ranks")
     from repro_torch.core.plan import plan_conv_layer
     with pytest.raises(ValueError, match="ingest"):
         plan_conv_layer(0, "conv0", (12, 12), 2, 8, capacity=64,

@@ -9,7 +9,8 @@ the JAX package's (``repro.tune``), on the CPU.
 * ``plan_from_winners`` rebuilds JAX's plan from the same winners, and a
   tampered entry is rejected and re-measured;
 * injected timings: with one deterministic cost per candidate in both
-  packages, both tuners pick the same plan (``stream_finalize`` too);
+  packages, both tuners pick the same plan (JAX also ranks its streamed
+  finalizations; the port has one streamed route, so nothing to rank);
 * a real CPU tune of SMOKE: the entry persists, a cache hit measures
   nothing, and the tuned plan's results equal the analytic plan's.
 
@@ -185,7 +186,8 @@ def _winners(jp, **net):
     return {"capacity": net.get("capacity", 256),
             "per_layer": net.get("per_layer", True),
             "t_chunk": jp.t_chunk,
-            "stream_finalize": jp.layers[0].stream_finalize,
+            # JAX's winners record its finalize pin; the port's plan has none
+            "stream_finalize": getattr(jp.layers[0], "stream_finalize", None),
             "layers": [{"block_e": lp.block_e, "event_par": lp.event_par,
                         "variant": lp.variant} for lp in jp.layers],
             "resolved": [{"capacity": lp.capacity, "block_e": lp.block_e,
@@ -257,8 +259,6 @@ def test_injected_timings_pick_jax_winners(monkeypatch, tmp_path, ingest,
                         lambda lp, *a, **k: _layer_cost(lp))
     monkeypatch.setattr(tmeasure, "measure_network",
                         lambda p, x, cfg, plan, **k: _net_cost(plan))
-    monkeypatch.setattr(tmeasure, "measure_streamed",
-                        lambda lp, *a, **k: _cost(lp.stream_finalize))
     monkeypatch.setattr(tauto, "model_microseconds", lambda *a: 1.0)
     jcfg, tcfg = jpaper.SMOKE, tpaper.SMOKE
     if ingest:
@@ -275,10 +275,13 @@ def test_injected_timings_pick_jax_winners(monkeypatch, tmp_path, ingest,
         tune_config=TuneConfig(device="cpu", include_interlaced=inc),
         cache_path=tmp_path / "torch.json")
     _same_plan(jp, tp)
-    if ingest:
-        assert tp.layers[0].stream_finalize in ("ranks", "sort")
     (entry,) = json.loads((tmp_path / "torch.json").read_text())[
         "entries"].values()
+    if ingest:
+        assert jp.layers[0].stream_finalize in ("ranks", "sort")
+    assert "stream_finalize" not in entry["winners"]
+    assert not any(k.startswith("stream_finalize/")
+                   for k in entry["measured_us"])
     assert any("interlaced-cuda" in k for k in entry["measured_us"]) == inc
     assert set(entry["model_us"]) <= set(entry["measured_us"])
 
